@@ -1,0 +1,16 @@
+"""marconet_tpu_torch: the PyTorch + CUDA port of ``marconet_tpu``.
+
+It runs the three-network restore (text-context encoder, structure-prior
+generator, SR net) on one NVIDIA Hopper GPU, with the JAX package's TPU
+kernels on that path rewritten as hand-written CUDA kernels (``csrc/``).
+The JAX package stays the reference that the port is tested against.
+
+Subpackages mirror the JAX package: ``ops`` (layers and kernel wrappers),
+``models`` (encoder, prior generator, SR net, pipeline) and ``convert``
+(JAX variables / reference ``.pth`` state dicts -> this package's modules).
+The package imports torch and never jax.
+"""
+
+from marconet_tpu.version import __version__
+
+__all__ = ["__version__"]

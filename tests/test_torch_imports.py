@@ -1,0 +1,77 @@
+"""Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
+without JAX, so no module of it may import ``jax``, ``flax`` or ``optax``,
+or a ``marconet_tpu`` module other than the framework-free ``alphabet``
+and ``version``. Checked on the source (AST), for every module."""
+
+import ast
+import pathlib
+
+import pytest
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "marconet_tpu_torch"
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax"}
+ALLOWED_JAX_PKG = {"marconet_tpu", "marconet_tpu.alphabet",
+                   "marconet_tpu.version"}
+MODULES = sorted(PKG.rglob("*.py"))
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            # ``from marconet_tpu import x`` imports submodule x too
+            for alias in node.names:
+                yield f"{node.module}.{alias.name}"
+
+
+def test_package_has_modules():
+    names = {p.relative_to(PKG).as_posix() for p in MODULES}
+    assert {"ops/fused_act.py", "ops/sft_writeback.py", "convert.py",
+            "models/pipeline.py"} <= names
+
+
+@pytest.mark.parametrize("path", MODULES,
+                         ids=[p.relative_to(PKG).as_posix() for p in MODULES])
+def test_module_imports_no_jax(path):
+    bad = []
+    for name in _imports(path):
+        root = name.split(".")[0]
+        if root in FORBIDDEN_ROOTS:
+            bad.append(name)
+        elif root == "marconet_tpu" and name not in ALLOWED_JAX_PKG:
+            # ``from marconet_tpu.alphabet import BLANK_INDEX`` yields
+            # ``marconet_tpu.alphabet.BLANK_INDEX``: allowed module + name
+            if name.rsplit(".", 1)[0] not in ALLOWED_JAX_PKG - {
+                    "marconet_tpu"}:
+                bad.append(name)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax_package():
+    """The card smoke takes everything from the port: it may not name any
+    ``marconet_tpu`` module, not even the framework-free ones."""
+    smoke = PKG.parent / "chip_smoke.py"
+    bad = [name for name in _imports(smoke)
+           if name.split(".")[0] in FORBIDDEN_ROOTS | {"marconet_tpu"}]
+    assert not bad, f"chip_smoke.py imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """The same property at run time, in a fresh interpreter."""
+    import subprocess
+    import sys
+
+    mods = [".".join(("marconet_tpu_torch",) + p.relative_to(PKG)
+                     .with_suffix("").parts).removesuffix(".__init__")
+            for p in MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'flax', 'optax'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
