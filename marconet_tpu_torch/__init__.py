@@ -8,9 +8,10 @@ The JAX package stays the reference that the port is tested against.
 Subpackages mirror the JAX package: ``ops`` (layers and kernel wrappers),
 ``models`` (encoder, prior generator, SR net, pipeline) and ``convert``
 (JAX variables / reference ``.pth`` state dicts -> this package's modules).
-The package imports torch and never jax.
+The package imports torch and never jax, nor any module of the JAX
+package.
 """
 
-from marconet_tpu.version import __version__
+from marconet_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

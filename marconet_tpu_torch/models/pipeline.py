@@ -17,13 +17,27 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from marconet_tpu.alphabet import BLANK_INDEX
+from marconet_tpu_torch.alphabet import BLANK_INDEX
 from marconet_tpu_torch.models.encoder import MAX_CHARS, TextContextEncoder
 from marconet_tpu_torch.models.prior import (
     PriorOutput,
     StructurePriorGenerator,
 )
 from marconet_tpu_torch.models.srnet import StructurePriorSRNet
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the one named, CUDA by default.
+
+    Raises when CUDA is asked for (or defaulted to) and there is none: the
+    port never falls back to the CPU on its own; a CPU run names
+    ``device="cpu"``.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU by "
+                           "default; pass device='cpu' to run on the CPU")
+    return dev
 
 
 class RestoreOutput(NamedTuple):
@@ -47,17 +61,18 @@ class MARCONet(nn.Module):
         reduced widths share the code path).
       num_classes: codebook / classifier size (6736 with blank).
       dtype: parameter and compute dtype, float32 or bfloat16.
-      device: where parameters are created and the pipeline runs.
+      device: where parameters are created and the pipeline runs; CUDA
+        unless named (see :func:`resolve_device`).
       seed: seed of the ``torch.Generator`` that draws the random init.
     """
 
     def __init__(self, width: float = 1.0, num_classes: int = 6736, *,
-                 dtype: torch.dtype = torch.float32, device=None,
+                 dtype: torch.dtype = torch.float32, device="cuda",
                  seed: int = 0):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported dtype {dtype}")
-        device = torch.device(device or "cpu")
+        device = resolve_device(device)
         g = torch.Generator(device=device).manual_seed(seed)
         kw = dict(device=device, generator=g)
         self.encoder = TextContextEncoder(num_classes, width, **kw)

@@ -1,7 +1,8 @@
 """Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
 without JAX, so no module of it may import ``jax``, ``flax`` or ``optax``,
-or a ``marconet_tpu`` module other than the framework-free ``alphabet``
-and ``version``. Checked on the source (AST), for every module."""
+or any ``marconet_tpu`` module (the port keeps its own copies of the
+framework-free ``alphabet`` and ``version``). Checked on the source
+(AST), for every module, and in a fresh interpreter."""
 
 import ast
 import pathlib
@@ -10,8 +11,7 @@ import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "marconet_tpu_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax"}
-ALLOWED_JAX_PKG = {"marconet_tpu", "marconet_tpu.alphabet",
-                   "marconet_tpu.version"}
+ALLOWED_JAX_PKG: set = set()
 MODULES = sorted(PKG.rglob("*.py"))
 
 
@@ -31,7 +31,7 @@ def _imports(path: pathlib.Path):
 def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"ops/fused_act.py", "ops/sft_writeback.py", "convert.py",
-            "models/pipeline.py"} <= names
+            "models/pipeline.py", "alphabet.py", "version.py"} <= names
 
 
 @pytest.mark.parametrize("path", MODULES,
@@ -43,11 +43,7 @@ def test_module_imports_no_jax(path):
         if root in FORBIDDEN_ROOTS:
             bad.append(name)
         elif root == "marconet_tpu" and name not in ALLOWED_JAX_PKG:
-            # ``from marconet_tpu.alphabet import BLANK_INDEX`` yields
-            # ``marconet_tpu.alphabet.BLANK_INDEX``: allowed module + name
-            if name.rsplit(".", 1)[0] not in ALLOWED_JAX_PKG - {
-                    "marconet_tpu"}:
-                bad.append(name)
+            bad.append(name)
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -61,7 +57,8 @@ def test_chip_smoke_imports_no_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    """The same property at run time, in a fresh interpreter."""
+    """The same property at run time, in a fresh interpreter: no JAX and
+    no module of the JAX package gets loaded."""
     import subprocess
     import sys
 
@@ -70,8 +67,31 @@ def test_importing_the_port_loads_no_jax():
             for p in MODULES]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'flax', 'optax'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'optax', 'marconet_tpu'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_alphabet_matches_the_jax_package():
+    """The port's own copy of the alphabet is the JAX package's."""
+    from marconet_tpu import alphabet as jax_alphabet
+    from marconet_tpu_torch import alphabet
+
+    assert alphabet.alphabet() == jax_alphabet.ALPHABET
+    assert alphabet.BLANK_INDEX == jax_alphabet.BLANK_INDEX
+    assert alphabet.NUM_CLASSES == jax_alphabet.NUM_CLASSES
+    labels = [0, 17, 6734, jax_alphabet.BLANK_INDEX, 3]
+    assert alphabet.text_from_labels(labels) == \
+        jax_alphabet.text_from_labels(labels)
+    with pytest.raises(ValueError):
+        alphabet.text_from_labels([6736])
+
+
+def test_version_matches_the_jax_package():
+    import marconet_tpu
+    import marconet_tpu_torch
+
+    assert marconet_tpu_torch.__version__ == marconet_tpu.__version__

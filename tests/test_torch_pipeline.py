@@ -31,7 +31,7 @@ def nets():
     jnet = JaxMARCONet(width=WIDTH)
     params = jax.jit(jnet.init)(jax.random.PRNGKey(7))
     as_np = jax.tree.map(np.asarray, params)
-    net = MARCONet(width=WIDTH)
+    net = MARCONet(width=WIDTH, device="cpu")
     net.encoder.load_state_dict(encoder_from_jax(as_np.encoder),
                                 strict=True)
     net.prior.load_state_dict(prior_from_jax(as_np.prior), strict=True)
@@ -72,6 +72,15 @@ def test_restore_matches_jax(nets, slots, n_valid):
         np.testing.assert_allclose(
             getattr(got, name).numpy(), np.asarray(getattr(want, name)),
             rtol=rtol, atol=atol, err_msg=name)
+
+
+def test_default_device_is_cuda():
+    """With no device named the pipeline runs on CUDA; without a card it
+    raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MARCONet(width=WIDTH)
 
 
 def test_restore_checks_inputs(nets):
