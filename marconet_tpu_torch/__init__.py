@@ -1,15 +1,17 @@
 """marconet_tpu_torch: the PyTorch + CUDA port of ``marconet_tpu``.
 
 It runs the three-network restore (text-context encoder, structure-prior
-generator, SR net) on one NVIDIA Hopper GPU, with the JAX package's TPU
-kernels on that path rewritten as hand-written CUDA kernels (``csrc/``).
-The JAX package stays the reference that the port is tested against.
+generator, SR net) and the three-phase GAN training step on one NVIDIA
+Hopper GPU, with the JAX package's TPU kernels on those paths rewritten as
+hand-written CUDA kernels (``csrc/``). The JAX package stays the reference
+that the port is tested against.
 
 Subpackages mirror the JAX package: ``ops`` (layers and kernel wrappers),
-``models`` (encoder, prior generator, SR net, pipeline) and ``convert``
-(JAX variables / reference ``.pth`` state dicts -> this package's modules).
-The package imports torch and never jax, nor any module of the JAX
-package.
+``models`` (encoder, prior generator, SR net, pipeline), ``train``
+(losses, discriminators, LPIPS, trainer, checkpoints), ``data`` (training
+batch geometry) and ``convert`` (JAX variables / reference ``.pth`` state
+dicts -> this package's modules). The package imports torch and never jax,
+nor any module of the JAX package.
 """
 
 from marconet_tpu_torch.version import __version__

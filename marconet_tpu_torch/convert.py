@@ -1,11 +1,13 @@
 """State dicts for the port's modules.
 
-- ``encoder_from_jax`` / ``prior_from_jax`` / ``srnet_from_jax``: the JAX
-  package's flax variables (as numpy arrays: ``params`` plus the SR net's
-  ``spectral`` u and v) -> state dicts with the reference's key names and
-  torch layouts. They invert
-  ``marconet_tpu/convert/torch_import.py::convert_{encoder,prior,srnet}``,
-  so a JAX init at any width loads into the port.
+- ``encoder_from_jax`` / ``prior_from_jax`` / ``srnet_from_jax`` /
+  ``discriminator_from_jax``: the JAX package's flax variables (as numpy
+  arrays: ``params`` plus the ``spectral`` u and v of spectral-norm nets)
+  -> state dicts with the reference's key names and torch layouts. They
+  invert ``marconet_tpu/convert/torch_import.py::convert_{encoder,prior,
+  srnet,discriminator}``, so a JAX init at any width loads into the port.
+- ``lpips_from_jax``: JAX LPIPS variables -> the port's LPIPS.
+- ``trainer_from_jax``: a JAX ``TrainState``'s five nets -> a port trainer.
 - ``load_reference_pth``: a released reference ``.pth`` -> strict
   ``load_state_dict`` into one of the port's networks.
 
@@ -218,6 +220,66 @@ def srnet_from_jax(variables: Mapping[str, Any]) -> StateDict:
     _add(sd, "conv_final.5",
          res_block_from_jax(params["final_res"], spectral["final_res"]))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# training nets
+# ---------------------------------------------------------------------------
+
+
+def discriminator_from_jax(variables: Mapping[str, Any]) -> StateDict:
+    """``UNetDiscriminatorSN`` flax variables -> basicsr-keyed state dict
+    (the inverse of ``marconet_tpu/convert/torch_import.py::
+    convert_discriminator``)."""
+    params, spectral = variables["params"], variables["spectral"]
+    sd: StateDict = {}
+    for name in ("conv0", "conv9"):
+        sd[f"{name}.weight"] = _conv(params[name]["kernel"])
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
+    for i in range(1, 9):
+        name = f"conv{i}"
+        sd[f"{name}.weight_orig"] = _conv(params[name]["kernel"])
+        sd[f"{name}.weight_u"] = _t(spectral[name]["u"])
+        sd[f"{name}.weight_v"] = _t(spectral[name]["v"])
+    return sd
+
+
+def lpips_from_jax(variables: Mapping[str, Any]) -> StateDict:
+    """``LPIPS`` flax variables -> the port's LPIPS state dict
+    (torchvision ``features.{idx}`` and lpips ``lin{i}.model.1`` keys;
+    the inverse of ``marconet_tpu/train/lpips.py::convert_lpips_weights``)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    idx = 0
+    for bi, n_convs in enumerate((2, 2, 3, 3, 3)):
+        for ci in range(n_convs):
+            conv = p["vgg"][f"conv{bi + 1}_{ci + 1}"]
+            sd[f"features.{idx}.weight"] = _conv(conv["kernel"])
+            sd[f"features.{idx}.bias"] = _t(conv["bias"])
+            idx += 2                        # conv + relu
+        idx += 1                            # max pool
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = _conv(p[f"lin{i}"]["kernel"])
+    return sd
+
+
+def trainer_from_jax(trainer, state, lpips_variables=None):
+    """Load a JAX ``TrainState``'s five nets (``params`` and ``spectral``
+    collections, as numpy arrays) into a port ``MARCONetTrainer``, so both
+    packages start a step from identical weights; with
+    ``lpips_variables``, the JAX trainer's LPIPS weights too. Optimizer
+    states and the step count are left as they are. Returns ``trainer``.
+    """
+    loads = {"encoder": encoder_from_jax, "prior": prior_from_jax,
+             "srnet": srnet_from_jax, "net_d": discriminator_from_jax,
+             "net_srd": discriminator_from_jax}
+    for name, from_jax in loads.items():
+        sd = from_jax(getattr(state, name))
+        trainer.net(name).load_state_dict(sd, strict=True)
+    if lpips_variables is not None:
+        trainer.lpips.load_state_dict(lpips_from_jax(lpips_variables),
+                                      strict=True)
+    return trainer
 
 
 # ---------------------------------------------------------------------------

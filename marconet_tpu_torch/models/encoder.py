@@ -20,8 +20,11 @@ from torch import nn
 from marconet_tpu_torch.ops.layers import Conv, Linear
 
 MAX_CHARS = 16
-NUM_TOKENS = 64      # (32 / 4 / 8) x (512 / 8) patches of the 32 x 512 line
 PATCH = 8
+# tokens per slot: a line of N slots is 32 x 32N, the backbone keeps the
+# width and cuts the height to 8, so (8 / 8) x (32N / 8) = 4N patches
+# (64 for the reference's 16 slots on a 32 x 512 line)
+TOKENS_PER_SLOT = 4
 
 
 def scaled_width(value: int, width: float, floor: int = 8,
@@ -212,7 +215,8 @@ class _Trunk(nn.Module):
             [EncoderBlock(dim, mlp_dim // 2, dim_head, **kw)])
         self.layers_w = nn.ModuleList(
             [EncoderBlock(dim, mlp_dim // 2, dim_head, **kw)])
-        self.linear_seq_maxlen = SeqProject(NUM_TOKENS, max_length, **kw)
+        self.linear_seq_maxlen = SeqProject(TOKENS_PER_SLOT * max_length,
+                                            max_length, **kw)
 
 
 class TextViTHead(nn.Module):
@@ -235,7 +239,8 @@ class TextViTHead(nn.Module):
         self.linear_cls = nn.Sequential(ln(), Linear(dim, num_classes, **kw))
         self.linear_locs = nn.Sequential(ln(), Linear(dim, dim // 2, **kw),
                                          nn.GELU(), Linear(dim // 2, 2, **kw))
-        self.linear_w_maxlen = SeqProject(NUM_TOKENS, 1, **kw)
+        self.linear_w_maxlen = SeqProject(TOKENS_PER_SLOT * max_length, 1,
+                                          **kw)
         self.linear_w = nn.Sequential(ln(), Linear(dim, dim, **kw))
 
     def forward(self, feat: torch.Tensor):

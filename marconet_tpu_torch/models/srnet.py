@@ -108,7 +108,8 @@ def sft_fusion(canvas, priors, locs, char_mask, *, half_width: int,
     def flat(t):        # (B, N, H, win, C) -> (B*N, C, H, win) channels_last
         return nchw(t.reshape(b * n, h, win, c))
 
-    canvas_h = nhwc(canvas)                                   # (B, H, W, C)
+    # (B, H, W, C); contiguous for K2 (a no-op for a channels_last canvas)
+    canvas_h = nhwc(canvas).contiguous()
     # x1 + win <= W + hw: the right pad keeps every window in range
     lq_win = gather_windows(F.pad(canvas_h, (0, 0, 0, hw)), x1, win)
     prior_h = nhwc(priors).reshape(b, n, h, win, c)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are compiled with ``nvcc`` for
-``sm_90a`` (Hopper) into one shared library, loaded with ``ctypes``. The
+``sm_90a`` (Hopper), one process per source started together, and linked
+into one shared library, loaded with ``ctypes``. The
 build runs at first use, never at import, into
 ``build/marconet_tpu_torch/<hash of the sources>/`` beside the package, so
 a checkout builds its own library and an edited source rebuilds it.
@@ -28,8 +29,8 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                            "marconet_tpu_torch")
 _LIB_NAME = "libmarconet_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,9 +62,25 @@ def _nvcc() -> str:
                        "marconet_tpu_torch need the CUDA toolkit to build")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once and wait for all; raise on any failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> tuple[str, float]:
     """Compile the kernels if this source hash has no library yet.
 
+    One ``nvcc`` per source, all started together, then one link.
     Returns ``(library path, seconds spent compiling)``; the seconds are 0
     when an existing build was reused.
     """
@@ -72,21 +89,20 @@ def build() -> tuple[str, float]:
     if os.path.exists(lib_path):
         return lib_path, 0.0
     os.makedirs(out_dir, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, seconds
+    # objects and library go to private names first: a concurrent build
+    # never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        sources = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp_dir, os.path.basename(s) + ".o")
+                for s in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                  for src, obj in zip(sources, objs)])
+        tmp_lib = os.path.join(tmp_dir, _LIB_NAME)
+        _run_all([[nvcc, *NVCC_ARCH, "-shared", "-o", tmp_lib, *objs]])
+        os.replace(tmp_lib, lib_path)
+    return lib_path, time.perf_counter() - t0
 
 
 @functools.cache
@@ -96,9 +112,14 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.marconet_fused_lrelu_fwd.argtypes = [p, p, p, ll, ll, i, p]
     lib.marconet_fused_lrelu_fwd.restype = i
+    lib.marconet_fused_lrelu_bwd.argtypes = [p, p, p, p, ll, ll, i, p]
+    lib.marconet_fused_lrelu_bwd.restype = i
     lib.marconet_sft_writeback.argtypes = [p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, p]
     lib.marconet_sft_writeback.restype = i
+    lib.marconet_sft_writeback_bwd.argtypes = [p, p, p, p, p,
+                                               i, i, i, i, i, i, i, p]
+    lib.marconet_sft_writeback_bwd.restype = i
     return lib
 
 

@@ -12,7 +12,8 @@ distributions and draws from an explicit ``torch.Generator``.
 - ``group_norm`` / ``GroupNorm``: torch semantics (biased variance,
   eps 1e-6), with an optional column mask: statistics over valid columns
   only, output zeroed at invalid ones.
-- ``SNConv``: spectral-norm conv in eval mode (sigma from the stored u, v).
+- ``SNConv``: spectral-norm conv; eval mode uses the stored u, v, training
+  mode advances them by one power iteration per forward.
 - ``Conv``, ``Linear``: plain layers with the JAX package's lecun-normal init.
 - ``ResTextBlockV2``: GroupNorm/swish residual block, plain or masked.
 - ``masked_mean_std`` / ``adaptive_instance_norm``: AdaIN statistics
@@ -203,26 +204,34 @@ def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 class SNConv(nn.Module):
-    """Conv2d with spectral weight normalization, torch eval semantics.
+    """Conv2d with spectral weight normalization (torch semantics).
 
-    State (reference keys): ``weight_orig`` (O, I, kh, kw), ``bias`` and the
-    power-iteration buffers ``weight_u`` (O,) and ``weight_v`` (I*kh*kw,).
-    ``sigma = u . (W_mat v)`` with ``W_mat`` the (O, I*kh*kw) view; the
-    conv uses ``weight_orig / sigma``. At init u and v are aligned with 15
-    power iterations, so a random-weight net starts with sigma near the
-    top singular value (as the JAX package does).
+    State (reference keys): ``weight_orig`` (O, I, kh, kw), ``bias`` (when
+    ``bias=True``) and the power-iteration buffers ``weight_u`` (O,) and
+    ``weight_v`` (I*kh*kw,). ``sigma = u . (W_mat v)`` with ``W_mat`` the
+    (O, I*kh*kw) view; the conv uses ``weight_orig / sigma``. At init u and
+    v are aligned with 15 power iterations, so a random-weight net starts
+    with sigma near the top singular value (as the JAX package does).
+
+    In training mode each forward first runs one power iteration under
+    ``no_grad`` (``v = norm(W^T u)``, ``u = norm(W v)``) and stores the
+    new u and v (JAX ``update_stats=True``, ``marconet_tpu/ops/
+    layers.py:263-269``); sigma stays differentiable in ``weight_orig``.
+    In eval mode the stored vectors are used as they are.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride=1, *, device=None,
-                 generator: torch.Generator):
+                 stride=1, padding: int | None = None, bias: bool = True, *,
+                 device=None, generator: torch.Generator):
         super().__init__()
         k = kernel_size
-        self.stride, self.padding = stride, k // 2
+        self.stride = stride
+        self.padding = k // 2 if padding is None else padding
         self.weight_orig = nn.Parameter(torch.empty(out_ch, in_ch, k, k,
                                                     device=device))
         lecun_normal_(self.weight_orig, in_ch * k * k, generator)
-        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) \
+            if bias else None
         with torch.no_grad():
             w_mat = self.weight_orig.reshape(out_ch, -1)
             u = _l2_normalize(torch.randn(out_ch, device=device,
@@ -234,11 +243,20 @@ class SNConv(nn.Module):
         self.register_buffer("weight_v", v)
 
     def normalized_weight(self) -> torch.Tensor:
-        """The normalized kernel ``weight_orig / sigma`` (f32 sigma)."""
+        """The normalized kernel ``weight_orig / sigma`` (f32 sigma); in
+        training mode after one power iteration that updates u and v."""
         w = self.weight_orig
         w_mat = w.float().reshape(w.shape[0], -1)
-        sigma = torch.dot(self.weight_u.float(),
-                          w_mat @ self.weight_v.float())
+        # copies: a later training-mode forward updates the buffers in
+        # place while this graph may still need them
+        u, v = self.weight_u.float().clone(), self.weight_v.float().clone()
+        if self.training:
+            with torch.no_grad():
+                v = _l2_normalize(w_mat.T @ u)
+                u = _l2_normalize(w_mat @ v)
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        sigma = torch.dot(u, w_mat @ v)
         return (w.float() / sigma).to(w.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -79,7 +79,9 @@ class StyledConv(nn.Module):
         self.activate = FusedLeakyReLU(out_ch, device=device)
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x, style)
+        # K1 reads channels_last; cuDNN's convs keep it (a no-op then),
+        # PyTorch's native CUDA convs return NCHW-contiguous
+        y = self.conv(x, style).contiguous(memory_format=torch.channels_last)
         # both biases are added before the activation: one K1 call
         return fused_leaky_relu(y, self.bias.view(-1) + self.activate.bias)
 

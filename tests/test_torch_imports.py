@@ -31,7 +31,10 @@ def _imports(path: pathlib.Path):
 def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"ops/fused_act.py", "ops/sft_writeback.py", "convert.py",
-            "models/pipeline.py", "alphabet.py", "version.py"} <= names
+            "models/pipeline.py", "alphabet.py", "version.py",
+            "train/train_step.py", "train/losses.py", "train/lpips.py",
+            "train/discriminators.py", "train/checkpoint.py",
+            "data/batch_prep.py"} <= names
 
 
 @pytest.mark.parametrize("path", MODULES,

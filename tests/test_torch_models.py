@@ -124,7 +124,9 @@ def test_srnet_matches_jax(jax_vars):
     want = np.asarray(jax.jit(JaxSRNet(dim=16).apply)(
         jax_vars.srnet, *map(jnp.asarray, args)))
 
-    net = StructurePriorSRNet(dim=16, prior_channels=32, generator=gen())
+    # eval mode, as the JAX net (update_stats=False): stored u and v
+    net = StructurePriorSRNet(dim=16, prior_channels=32,
+                              generator=gen()).eval()
     net.load_state_dict(srnet_from_jax(jax_vars.srnet), strict=True)
 
     def flat(p):    # (1, N, H, W, C) -> (N, C, H, W) channels_last

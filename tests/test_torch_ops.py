@@ -180,7 +180,8 @@ def test_snconv(rng, stride):
     jmod = jl.SNConv(12, strides=(stride, stride))
     v = np_vars(jmod.init(jax.random.PRNGKey(2), jnp.asarray(x)))
     v["params"]["bias"] = f32(rng, 12, s=0.1)
-    mod = tl.SNConv(6, 12, stride=stride, generator=gen())
+    # eval mode, as the JAX module (update_stats=False): stored u and v
+    mod = tl.SNConv(6, 12, stride=stride, generator=gen()).eval()
     mod.load_state_dict(sn_conv_from_jax(v["params"], v["spectral"]))
     want = np.asarray(jmod.apply(v, jnp.asarray(x)))
     got = from_port(mod(to_port(x)))
@@ -224,7 +225,7 @@ def test_res_text_block(rng, cin, cout, masked):
         x = x * mask[:, None, :, None]
     jmod = jl.ResTextBlockV2(cout)
     v = np_vars(jmod.init(jax.random.PRNGKey(5), jnp.asarray(x)))
-    mod = tl.ResTextBlockV2(cin, cout, generator=gen())
+    mod = tl.ResTextBlockV2(cin, cout, generator=gen()).eval()  # as JAX
     mod.load_state_dict(res_block_from_jax(v["params"], v["spectral"]))
     want = np.asarray(jmod.apply(v, jnp.asarray(x), mask=jmask))
     tmask = None if mask is None else torch.from_numpy(mask[:, None, None])

@@ -131,6 +131,9 @@ def sft_modules():
                     tsrnet.SNStack(c, c, generator=gen()))
     scale.load_state_dict(sn_stack_from_jax(p["scale"], s["scale"]))
     shift.load_state_dict(sn_stack_from_jax(p["shift"], s["shift"]))
+    # eval mode, as the JAX module (update_stats=False): stored u and v
+    for m in (fuse, scale, shift):
+        m.eval()
     return jmod, v, (fuse, scale, shift), (c, hw, h, width, n)
 
 
