@@ -29,14 +29,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    (B=1, 4 slots, random LPIPS explicitly allowed: the pretrained weights
    are not in the repository) on the card (kernels, TF32 off) against the
    CPU (plain versions), same seeded weights: every loss term of the G, D
-   and SRD phases and the G-phase gradient of encoder, prior and SR net,
-   within the tolerances printed.
+   and SRD phases and each net's gradient (G phase: encoder, prior, SR
+   net; D / SRD phase: the discriminators), within the tolerances
+   printed; then the encoder's gradient with cuDNN off (held to 1e-3)
+   and a report of where cuDNN's differs (cotangents, cuDNN modes, and
+   every conv2d of the G phase against f64).
 7. training throughput: full-width f32 steps at ``options/train.yml``'s
    batch 2 with 16 slots on batches from ``prepare_train_batch``; one
-   warm-up step and timed steps; checks finite losses, that every net
-   moved, the step count and the exact launches of the four kernels per
-   step; prints samples/s and the G / D / SRD split from CUDA events and
-   the peak device memory.
+   warm-up step and timed steps; checks finite losses, that every
+   parameter tensor with a gradient moved, the step count and the exact
+   launches of the four kernels per step; prints samples/s and the G / D
+   / SRD split from CUDA events and the peak device memory.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -44,6 +47,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -58,6 +62,7 @@ from marconet_tpu_torch import native
 from marconet_tpu_torch.data.batch_prep import prepare_train_batch
 from marconet_tpu_torch.models.pipeline import BLANK_INDEX, MARCONet
 from marconet_tpu_torch.models.srnet import window_geometry
+from marconet_tpu_torch.ops.layers import nchw
 from marconet_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_bwd,
@@ -148,9 +153,13 @@ def phase_device() -> str:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     say(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
-        f" cuda {torch.version.cuda}; cudnn.allow_tf32="
-        f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
-        f"{torch.backends.cuda.matmul.allow_tf32}")
+        f" cuda {torch.version.cuda} cudnn {torch.backends.cudnn.version()}; "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; "
+        f"fp32_precision: cudnn.conv "
+        f"{getattr(torch.backends.cudnn.conv, 'fp32_precision', '-')}, "
+        f"cuda.matmul "
+        f"{getattr(torch.backends.cuda.matmul, 'fp32_precision', '-')}")
     native.require_hopper(torch.device("cuda", 0))
     return smi
 
@@ -473,14 +482,230 @@ def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # card vs CPU, f32, TF32 off: losses rtol 1e-3 / atol 1e-4 (full-width
-# reductions in another order); G-phase gradients by relative L2 norm per
-# net. The SR net's 1e-2 is the f32 sensitivity of its masked GroupNorm /
-# AdaIN statistics (the CPU suite holds it to 1e-2 against JAX). The
-# encoder's 1e-2: with the step's own cotangents, cuDNN's f32 backward of
-# the ResNet-45 trunk lands ~1.5e-3 (relative L2) from the CPU; the phase
-# also prints the same gradient with cuDNN off, which shows the cause.
+# reductions in another order); each net's gradient (the G phase's for
+# encoder, prior and SR net, the D and SRD phases' for the discriminators)
+# by relative L2 norm. The SR net's 1e-2 is the f32 sensitivity of its
+# masked GroupNorm / AdaIN statistics (the CPU suite holds it to 1e-2
+# against JAX). The encoder's 1e-2 on the cuDNN path: one ReLU input in
+# its trunk lies within f32 rounding of 0 and cuDNN's f32 forward puts it
+# on the other side, which reroutes the gradient through that unit
+# (``_precision_report`` finds and prints it). The port's own math is held
+# tighter: the encoder's gradient with PyTorch's native CUDA convolutions
+# within 1e-3, and every conv2d of the G phase, recomputed alone under the
+# path's own settings, within 1e-5 of f64 (TF32 would miss by ~1e-3).
 PARITY_LOSS_TOL = (1e-3, 1e-4)
-PARITY_GRAD_TOL = {"encoder": 1e-2, "prior": 1e-3, "srnet": 1e-2}
+PARITY_GRAD_TOL = {"encoder": 1e-2, "prior": 1e-3, "srnet": 1e-2,
+                   "net_d": 1e-3, "net_srd": 1e-3}
+PARITY_NATIVE_ENCODER_TOL = 1e-3
+PARITY_CONV_F64_TOL = 1e-5
+
+
+def _conv_backend(cudnn: bool):
+    """The path's own settings with cuDNN; PyTorch's native CUDA
+    convolutions otherwise (``cudnn.flags`` turns TF32 on unless told)."""
+    return (contextlib.nullcontext() if cudnn else
+            torch.backends.cudnn.flags(enabled=False, allow_tf32=False))
+
+
+class _EncoderCotangents:
+    """Keeps the cotangents that reach the encoder's outputs (logits,
+    locs, w) and its ResNet trunk's output during one backward."""
+
+    def __init__(self, trainer):
+        self.grads = {}
+        self.handles = [
+            trainer.encoder.register_forward_hook(self._outputs),
+            trainer.encoder.resnet.register_forward_hook(self._trunk)]
+
+    def _outputs(self, module, inputs, out) -> None:
+        for name, t in zip(("logits", "locs", "w"), out):
+            self._keep(name, t)
+
+    def _trunk(self, module, inputs, out) -> None:
+        self._keep("trunk", out)
+
+    def _keep(self, name, t) -> None:
+        t.register_hook(lambda g: self.grads.__setitem__(
+            name, g.detach().float().cpu()))
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+class _ConvRecorder(torch.overrides.TorchFunctionMode):
+    """Records every ``conv2d`` of a forward and backward: the module that
+    ran it, its inputs and the cotangent of its output."""
+
+    def __init__(self, nets):
+        super().__init__()
+        self.calls, self.stack, self.handles = [], [], []
+        for net_name, net in nets.items():
+            for name, mod in net.named_modules():
+                label = f"{net_name}.{name}" if name else net_name
+                self.handles += [
+                    mod.register_forward_pre_hook(
+                        lambda m, i, label=label: self._enter(label)),
+                    mod.register_forward_hook(self._leave)]
+
+    def _enter(self, label: str) -> None:
+        self.stack.append(label)
+
+    def _leave(self, module, inputs, out) -> None:
+        self.stack.pop()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.nn.functional.conv2d and out.requires_grad:
+            call = {"module": self.stack[-1] if self.stack else "?",
+                    "args": [a.detach() if isinstance(a, torch.Tensor)
+                             else a for a in args],
+                    "kwargs": dict(kwargs or {})}
+            out.register_hook(
+                lambda g, call=call: call.__setitem__("gy", g.detach()))
+            self.calls.append(call)
+        return out
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def _conv_errors(call) -> dict:
+    """Relative L2 errors of one recorded conv's output, input gradient
+    and weight gradient in f32 with cuDNN and with PyTorch's native CUDA
+    convolutions, each against f64 on the same inputs."""
+    x, w, *rest = call["args"]
+
+    def run(dtype, cudnn):
+        with _conv_backend(cudnn):
+            xx = x.to(dtype).requires_grad_()
+            ww = w.to(dtype).requires_grad_()
+            more = [a.to(dtype) if isinstance(a, torch.Tensor) else a
+                    for a in rest]
+            y = torch.nn.functional.conv2d(xx, ww, *more, **call["kwargs"])
+            return (y.detach(),) + torch.autograd.grad(
+                y, (xx, ww), call["gy"].to(dtype))
+
+    ref = run(torch.float64, True)
+    out = {}
+    for backend, cudnn in (("cudnn", True), ("native", False)):
+        for part, g, r in zip(("fwd", "dgrad", "wgrad"),
+                              run(torch.float32, cudnn), ref):
+            out[f"{backend} {part}"] = _rel_l2(g.double(), r)
+    return out
+
+
+def _trunk_against_f64(gpu, start, lq, cot) -> None:
+    """The encoder's ResNet trunk alone, on the step's input ``lq`` (NHWC,
+    CPU) with the CPU step's cotangent ``cot`` at its output: output and
+    weight gradient in f32 with cuDNN, with the native CUDA convolutions
+    and on the CPU, each against f64 on the card. Then, against the f64
+    run, each conv of the cuDNN run whose input (a ReLU's output) is 0 at
+    other entries than f64's, with the error of the cotangent at its
+    output and at the output of the conv before it."""
+    sd = {k.removeprefix("resnet."): v
+          for k, v in start["nets"]["encoder"].items()
+          if k.startswith("resnet.")}
+
+    def run(device, dtype, cudnn=True):
+        trunk = copy.deepcopy(gpu.encoder.resnet).to(device, dtype)
+        trunk.load_state_dict(sd)
+        rec = _ConvRecorder({"trunk": trunk})
+        with _conv_backend(cudnn), torch.backends.mkldnn.flags(
+                enabled=False, allow_tf32=False):
+            with rec:
+                y = trunk(nchw(lq.to(device, dtype)))
+            y.backward(cot.to(device, dtype))
+        rec.close()
+        return (y.detach().double().cpu(),
+                torch.cat([p.grad.double().cpu().ravel()
+                           for p in trunk.parameters()]), rec.calls)
+
+    y64, g64, calls64 = run(gpu.device, torch.float64)
+    runs = {"cuDNN f32": run(gpu.device, torch.float32),
+            "native f32": run(gpu.device, torch.float32, cudnn=False),
+            "CPU f32": run(torch.device("cpu"), torch.float32)}
+    say("[train-parity] encoder trunk alone, same input and output "
+        "cotangent, against f64 (relative L2, output / weight gradient): "
+        + ", ".join(f"{k} {_rel_l2(y, y64):.2e} / {_rel_l2(g, g64):.2e}"
+                    for k, (y, g, _) in runs.items())
+        + "; weight gradient, native f32 vs CPU f32 "
+        f"{_rel_l2(runs['native f32'][1], runs['CPU f32'][1]):.2e}")
+    calls = runs["cuDNN f32"][2]
+    cot_err = [_rel_l2(c["gy"].double(), r["gy"]) for c, r in
+               zip(calls, calls64)]
+    for i, (c, r) in enumerate(zip(calls, calls64)):
+        x32, x64 = c["args"][0], r["args"][0]
+        flips = (x32 == 0) != (x64 == 0)
+        if i and bool(flips.any()):
+            say(f"[train-parity] trunk, cuDNN f32 vs f64: the input of "
+                f"{c['module'].removeprefix('trunk.')} is exactly 0 at "
+                f"{int((x64 == 0).sum())} entries in f64 and "
+                f"{int((x32 == 0).sum())} in f32; {int(flips.sum())} "
+                f"differ (largest value there: f32 "
+                f"{float(x32[flips].abs().max()):.2e}, f64 "
+                f"{float(x64[flips].abs().max()):.2e}); the cotangent's "
+                f"error is {cot_err[i]:.2e} at this conv's output and "
+                f"{cot_err[i - 1]:.2e} at the output of "
+                f"{calls[i - 1]['module'].removeprefix('trunk.')}")
+
+
+def _encoder_rel(gpu, cpu) -> float:
+    return _rel_l2(torch.cat([p.grad.cpu().ravel()
+                              for p in gpu.encoder.parameters()]),
+                   torch.cat([p.grad.ravel()
+                              for p in cpu.encoder.parameters()]))
+
+
+def _precision_report(gpu, cpu, start, arrays, cot_gpu, cot_cpu) -> None:
+    """Where the encoder's G-phase gradient on the card leaves the CPU's.
+
+    1. the cotangents reaching the encoder's outputs and its trunk;
+    2. the same G phase with cuDNN off (held to 1e-3);
+    3. every conv2d of one G phase on the path's settings, recomputed
+       alone on its own inputs in f32 with cuDNN (held to 1e-5) and with
+       the native convolutions, each against f64;
+    4. the trunk alone (``_trunk_against_f64``).
+    """
+    say("[train-parity] cotangents reaching the encoder, card vs CPU "
+        "(relative L2): " + ", ".join(
+            f"{k} {_rel_l2(cot_gpu[k], cot_cpu[k]):.3e}" for k in cot_cpu))
+    batch = TrainBatch.from_numpy(arrays, gpu.device)
+    gpu.load_state_dict(start)
+    with _conv_backend(cudnn=False):
+        gpu.g_phase(batch)
+    rel = _encoder_rel(gpu, cpu)
+    say(f"[train-parity] G-phase gradient of encoder with cuDNN off: "
+        f"relative L2 difference {rel:.3e} (limit "
+        f"{PARITY_NATIVE_ENCODER_TOL:g})")
+    if not rel <= PARITY_NATIVE_ENCODER_TOL:
+        raise AssertionError(f"encoder gradient with cuDNN off differs by "
+                             f"{rel}")
+
+    gpu.load_state_dict(start)
+    rec = _ConvRecorder({n: gpu.net(n) for n in NETS} | {"lpips": gpu.lpips})
+    with rec:
+        gpu.g_phase(batch)
+    rec.close()
+    rows = []
+    for call in rec.calls:
+        if "gy" in call:
+            rows.append((_conv_errors(call), call["module"]))
+        call.clear()
+    torch.cuda.empty_cache()
+    worst = {k: max((e[k], m) for e, m in rows) for k in rows[0][0]}
+    say(f"[train-parity] {len(rows)} conv2d calls of one G phase, each "
+        f"alone against f64, largest relative L2 error (limit "
+        f"{PARITY_CONV_F64_TOL:g} with cuDNN): " + ", ".join(
+            f"{k} {e:.2e} ({m})" for k, (e, m) in worst.items()))
+    bad = {k: v for k, v in worst.items()
+           if k.startswith("cudnn") and not v[0] <= PARITY_CONV_F64_TOL}
+    if bad:
+        raise AssertionError(f"cuDNN conv2d outside {PARITY_CONV_F64_TOL}"
+                             f" of f64: {bad}")
+    _trunk_against_f64(gpu, start, TrainBatch.from_numpy(arrays, "cpu").lq,
+                       cot_cpu["trunk"])
 
 
 def phase_train_parity() -> None:
@@ -501,14 +726,18 @@ def phase_train_parity() -> None:
     t0 = time.perf_counter()
     # oneDNN off on the CPU: its strided 1x1 conv backward has crashed
     # PyTorch's CPU build; the native convolutions compute the same
+    cot_cpu = _EncoderCotangents(cpu)
     with torch.backends.mkldnn.flags(enabled=False):
         want = cpu.train_step(TrainBatch.from_numpy(arrays, "cpu"))
+    cot_cpu.close()
     cpu_s = time.perf_counter() - t0
     _reset_counts()
+    cot_gpu = _EncoderCotangents(gpu)
     t0 = time.perf_counter()
     got = gpu.train_step(TrainBatch.from_numpy(arrays, "cuda"))
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
+    cot_gpu.close()
     launches = _counts()
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel did not launch in the card's step: "
@@ -530,31 +759,22 @@ def phase_train_parity() -> None:
             g, w = p.grad.float().cpu(), cpu_params[k].grad
             flat_g.append(g.ravel())
             flat_w.append(w.ravel())
-            worst.append((_rel_l2(g, w), float(w.norm()), k))
+            worst.append((float((g - w).norm()), _rel_l2(g, w), k))
         rel = _rel_l2(torch.cat(flat_g), torch.cat(flat_w))
-        say(f"[train-parity] G-phase gradient of {net}: relative L2 "
-            f"difference {rel:.3e} (limit {tol:g}); largest per tensor: " +
-            ", ".join(f"{k} {r:.2e} (norm {n:.2e})"
-                      for r, n, k in sorted(worst, reverse=True)[:4]))
+        phase = {"net_d": "D", "net_srd": "SRD"}.get(net, "G")
+        say(f"[train-parity] {phase}-phase gradient of {net}: relative L2 "
+            f"difference {rel:.3e} (limit {tol:g}); "
+            f"largest differences: " + ", ".join(
+                f"{k} {d:.2e} ({r:.2e} of its norm)"
+                for d, r, k in sorted(worst, reverse=True)[:3]))
         if not rel <= tol:
             failed.append(f"{net} gradient differs by {rel}")
     if failed:
         raise AssertionError("; ".join(failed))
-
-    # the encoder's deviation comes from cuDNN: the same G phase with
-    # PyTorch's native CUDA convolutions instead
-    gpu.load_state_dict(start)
-    with torch.backends.cudnn.flags(enabled=False):
-        gpu.g_phase(TrainBatch.from_numpy(arrays, "cuda"))
-    rel = _rel_l2(torch.cat([p.grad.cpu().ravel()
-                             for p in gpu.encoder.parameters()]),
-                  torch.cat([p.grad.ravel()
-                             for p in cpu.encoder.parameters()]))
-    say(f"[train-parity] G-phase gradient of encoder with cuDNN off on "
-        f"the card: relative L2 difference {rel:.3e}")
     say(f"[train-parity] train_step f32 B=1 N={PARITY_SLOTS}: card "
         f"{gpu_s * 1e3:.1f} ms (first call), CPU "
         f"({torch.get_num_threads()} threads) {cpu_s * 1e3:.1f} ms")
+    _precision_report(gpu, cpu, start, arrays, cot_gpu.grads, cot_cpu.grads)
 
 
 def phase_train(smi: str) -> dict:
@@ -565,13 +785,16 @@ def phase_train(smi: str) -> dict:
     gen = np.random.default_rng(4)
     batches = [TrainBatch.from_numpy(
         _train_arrays(gen, TRAIN_BATCH, TRAIN_SLOTS), dev) for _ in range(2)]
-    before = {n: next(trainer.net(n).parameters()).detach().clone()
-              for n in NETS}
+    params = {f"{n}.{k}": p for n in NETS
+              for k, p in trainer.net(n).named_parameters()}
+    before = {k: p.detach().clone() for k, p in params.items()}
     torch.cuda.reset_peak_memory_stats(dev)
 
     _reset_counts()
     trainer.train_step(batches[0])                 # warm-up
     torch.cuda.synchronize()
+    _check_moved(params, before)
+    del before
     marks, metrics = [], []
     for i in range(TRAIN_STEPS):
         metrics.append(trainer.train_step(batches[i % 2], marks=marks))
@@ -588,9 +811,6 @@ def phase_train(smi: str) -> dict:
         for k, v in m.items():
             if not bool(torch.isfinite(v)):
                 raise AssertionError(f"non-finite {k}")
-    for n in NETS:
-        if torch.equal(next(trainer.net(n).parameters()), before[n]):
-            raise AssertionError(f"{n} did not move")
     split = {"G": 0.0, "D": 0.0, "SRD": 0.0}
     for i in range(TRAIN_STEPS):
         m = marks[4 * i: 4 * i + 4]
@@ -608,6 +828,23 @@ def phase_train(smi: str) -> dict:
         ", ".join(f"{k} {float(v):.4g}" for k, v in metrics[-1].items()))
     _profile_step(trainer, batches[0])
     return launches
+
+
+def _check_moved(params: dict, before: dict) -> None:
+    """After one step (no freeze groups) every parameter tensor with a
+    gradient entry above 100 x Adam's eps moved: Adam's first update is
+    about lr * sign(g) there. Tensors without one are named."""
+    quiet = []
+    for key, p in params.items():
+        if p.grad is None:
+            raise AssertionError(f"{key} got no gradient")
+        if not bool((p.grad.abs() > 1e-6).any()):
+            quiet.append(key)
+        elif torch.equal(p.detach(), before[key]):
+            raise AssertionError(f"{key} did not move")
+    say(f"[train] after the warm-up step {len(params) - len(quiet)} of "
+        f"{len(params)} parameter tensors moved; without a gradient above "
+        f"1e-6: {quiet}")
 
 
 _CUPTI_MARKER = "Command Buffer Full"

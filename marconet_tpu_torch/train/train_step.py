@@ -7,8 +7,8 @@ tspgan_model.py:317-607``), eager PyTorch:
 * phase G: encoder -> priors for all B x N slots -> SR net, 13 loss terms
   (CTC, locations, glyph pixels / IoU, GAN terms through the frozen
   discriminators, SR pixels, LPIPS); one backward and one Adam step for
-  each of the three nets. The discriminators run in eval mode with their
-  parameters out of autograd, so their spectral vectors do not move; the
+  each of the three nets. The discriminators run in eval mode and the
+  backward skips their weights, so their spectral vectors do not move; the
   SR net runs in training mode, so each of its spectral convs advances its
   u / v once; priors and locs are detached on entry to the SR net (the
   reference's train archs detach them, ``tsp_arch.py:202-205,246-249``).
@@ -29,7 +29,6 @@ the five optimizers and the step count; ``state_dict`` /
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -171,20 +170,6 @@ def _judge(net, x):
     """A discriminator over (B, N, 128, 128, C) crops -> (B, N, 128 * 128)."""
     b, n = x.shape[:2]
     return net(nchw(x.reshape(b * n, *x.shape[2:]))).reshape(b, n, -1)
-
-
-@contextlib.contextmanager
-def _no_param_grads(*nets):
-    """Take the nets' parameters out of autograd for a block (gradients
-    still flow through the nets to their inputs)."""
-    saved = [(p, p.requires_grad) for net in nets for p in net.parameters()]
-    for p, _ in saved:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p, flag in saved:
-            p.requires_grad_(flag)
 
 
 class MARCONetTrainer:
@@ -378,9 +363,12 @@ class MARCONetTrainer:
             self.net(name).train().zero_grad(set_to_none=True)
         self.net_d.eval()
         self.net_srd.eval()
-        with _no_param_grads(self.net_d, self.net_srd):
-            total, metrics, crops = self._g_loss(batch)
-            total.backward()
+        total, metrics, crops = self._g_loss(batch)
+        # only the G nets' gradients: the discriminators pass gradients to
+        # their inputs and compute none for their own weights
+        total.backward(inputs=[p for name in ("encoder", "prior", "srnet")
+                               for p in self.net(name).parameters()
+                               if p.requires_grad])
         return metrics, crops
 
     def _d_phase(self, name: str, fake, real, mask) -> torch.Tensor:
