@@ -17,15 +17,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    abs difference (expected 0: all do f32 math and round once), CUDA-event
    times of both, and each kernel's bound (the larger of its bytes over
    the card's memory rate and its operations over the f32 peak).
-4. parity: full-width f32 ``restore`` (B=1, 4 slots, 3 valid) on the card
+4. conv3x3: K3 (the 3x3 implicit-GEMM conv) on its path, the SFT window
+   convs of one serving batch (12 launches, counted); then against its
+   plain version at the four SFT window shapes in bf16 (within one bf16
+   ulp), the largest in f32 (within 1e-5 of the largest value) and two
+   ragged shapes, both against f64 ``F.conv2d``; kernel, bound, plain and
+   cuDNN times.
+5. parity: full-width f32 ``restore`` (B=1, 4 slots, 3 valid) on the card
    (kernels, TF32 off) against the CPU (plain versions), same seeded
    weights, within the tolerances of
    tests/test_convert.py::test_full_pipeline_chain_matches_torch.
-5. serving: bf16 ``restore`` at full width on bench.py's workload (16
+6. serving: bf16 ``restore`` at full width on bench.py's workload (16
    lines of 8 characters) over several batches; checks shapes, finite
    values, sr in [-1, 1] and that every kernel of the path launched;
    prints crops/s from CUDA events and the per-stage split.
-6. training parity: one full-width f32 ``MARCONetTrainer.train_step``
+7. page server: full-width bf16 ``TextPageRestorer`` on a seeded page of
+   48 lines (a quarter split into 2-3 segments), default buckets and
+   bucket 16; checks results, stitching, equality with ``restore`` on
+   each chunk, chunking invariance (in f32), exact K1 / K2 launches per
+   chunk and that ``restore`` never synchronises with the host; prints
+   lines/s, host prep and device time per chunk and the loop's idle
+   share.
+8. interpolation: full-width f32 ``interpolate_styles`` (11 blends of 8
+   labels); its endpoints against ``generate_priors``.
+9. training parity: one full-width f32 ``MARCONetTrainer.train_step``
    (B=1, 4 slots, random LPIPS explicitly allowed: the pretrained weights
    are not in the repository) on the card (kernels, TF32 off) against the
    CPU (plain versions), same seeded weights: every loss term of the G, D
@@ -34,11 +49,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    printed; then the encoder's gradient with cuDNN off (held to 1e-3)
    and a report of where cuDNN's differs (cotangents, cuDNN modes, and
    every conv2d of the G phase against f64).
-7. training throughput: full-width f32 steps at ``options/train.yml``'s
+10. training throughput: full-width f32 steps at ``options/train.yml``'s
    batch 2 with 16 slots on batches from ``prepare_train_batch``; one
    warm-up step and timed steps; checks finite losses, that every
    parameter tensor with a gradient moved, the step count and the exact
-   launches of the four kernels per step; prints samples/s and the G / D
+   launches of the kernels per step; prints samples/s and the G / D
    / SRD split from CUDA events and the peak device memory.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -50,19 +65,24 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from marconet_tpu_torch import native
 from marconet_tpu_torch.data.batch_prep import prepare_train_batch
+from marconet_tpu_torch.alphabet import alphabet
 from marconet_tpu_torch.models.pipeline import BLANK_INDEX, MARCONet
 from marconet_tpu_torch.models.srnet import window_geometry
 from marconet_tpu_torch.ops.layers import nchw
+from marconet_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
 from marconet_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_bwd,
@@ -75,6 +95,7 @@ from marconet_tpu_torch.ops.sft_writeback import (
     sft_writeback_bwd_plain,
     sft_writeback_plain,
 )
+from marconet_tpu_torch.serve import TextPageRestorer, _pack_uint8
 from marconet_tpu_torch.train.train_step import (
     NETS,
     MARCONetTrainer,
@@ -90,10 +111,12 @@ TRAIN_BATCH = 2     # options/train.yml:20 batch_size_per_gpu
 TRAIN_SLOTS = 16
 TRAIN_STEPS = 5     # timed, after one warm-up step
 PARITY_SLOTS = 4
-# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
-# f32 operations/s outside the tensor cores (these kernels' arithmetic)
+# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s, f32
+# operations/s outside the tensor cores (K1, K1b, K2 and K3 in f32) and
+# dense bf16 operations/s on the tensor cores (K3 in bf16)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 KERNELS = {
     "fused_leaky_relu": dict(
         route="cuda", source="marconet_tpu_torch/csrc/fused_act.cu",
@@ -107,11 +130,20 @@ KERNELS = {
     "sft_writeback_bwd": dict(
         route="cuda", source="marconet_tpu_torch/csrc/sft_writeback.cu",
         replaces="none"),
+    "conv3x3_same": dict(
+        route="cuda", source="marconet_tpu_torch/csrc/conv3x3.cu",
+        replaces="marconet_tpu/ops/pallas_conv.py:39"),
 }
 # launches per training step: 19 StyledConv / style-MLP activations in the
-# prior (forward and backward), two SFT scales in the SR net
+# prior (forward and backward), two SFT scales in the SR net; no model
+# calls K3 (as in the JAX package)
 TRAIN_LAUNCHES = {"fused_leaky_relu": 19, "fused_leaky_relu_bwd": 19,
-                  "sft_writeback": 2, "sft_writeback_bwd": 2}
+                  "sft_writeback": 2, "sft_writeback_bwd": 2,
+                  "conv3x3_same": 0}
+# launches per restore (serving): no backward kernel, no K3
+RESTORE_LAUNCHES = {"fused_leaky_relu": 19, "fused_leaky_relu_bwd": 0,
+                    "sft_writeback": 2, "sft_writeback_bwd": 0,
+                    "conv3x3_same": 0}
 
 
 def say(*parts) -> None:
@@ -195,9 +227,11 @@ def _k2_case(gen: np.random.Generator, tgen: torch.Generator, b: int,
             valid.to(dev))
 
 
-def _bound(nbytes: float, ops: float) -> tuple:
-    """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` done."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def _bound(nbytes: float, ops: float,
+           ops_per_s: float = F32_OPS_PER_S) -> tuple:
+    """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` done at
+    ``ops_per_s``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -386,7 +420,8 @@ def _check_serving(out, batch: int, slots: int) -> None:
 _WRAPPERS = {"fused_leaky_relu": fused_leaky_relu,
              "fused_leaky_relu_bwd": fused_leaky_relu_bwd,
              "sft_writeback": sft_writeback,
-             "sft_writeback_bwd": sft_writeback_bwd}
+             "sft_writeback_bwd": sft_writeback_bwd,
+             "conv3x3_same": conv3x3_same}
 
 
 def _reset_counts() -> None:
@@ -432,11 +467,9 @@ def phase_serve(smi: str) -> dict:
     for out in outs:
         _check_serving(out, b, n)
     calls = SERVE_ITERS + 1
-    # inference runs no backward kernel
-    _check_counts("serve", launches, {
-        "fused_leaky_relu": calls * 19, "fused_leaky_relu_bwd": 0,
-        "sft_writeback": calls * 2, "sft_writeback_bwd": 0},
-        f"{calls} restores")
+    _check_counts("serve", launches,
+                  {k: v * calls for k, v in RESTORE_LAUNCHES.items()},
+                  f"{calls} restores")
     say(f"[serve] bf16 restore B={b} slots={n}: {ms:.2f} ms/batch = "
         f"{b * 1e3 / ms:.2f} crops/s on {smi}")
 
@@ -457,6 +490,482 @@ def phase_serve(smi: str) -> dict:
     say("[serve] stages (ms/batch): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items()))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# K3: the SR net's SFT window convs
+# ---------------------------------------------------------------------------
+
+SFT_WINDOWS = SERVE_BATCH * SERVE_SLOTS   # 128 windows per serving batch
+# (N, H, W, CI, CO, dtype) of K3's checks: the four SFT window conv shapes
+# of the serving batch in bf16 (the fuse block's 512 -> 256 conv; 256 ->
+# 256 for its second conv and the scale / shift stacks; at the 64- and
+# 32-high scales), the largest 256 -> 256 one in f32, and two ragged
+# shapes in each dtype
+K3_CASES = [(SFT_WINDOWS, 64, 64, 512, 256, torch.bfloat16),
+            (SFT_WINDOWS, 64, 64, 256, 256, torch.bfloat16),
+            (SFT_WINDOWS, 32, 32, 512, 256, torch.bfloat16),
+            (SFT_WINDOWS, 32, 32, 256, 256, torch.bfloat16),
+            (SFT_WINDOWS, 64, 64, 256, 256, torch.float32),
+            (3, 7, 13, 40, 24, torch.bfloat16),
+            (2, 9, 64, 300, 130, torch.bfloat16),
+            (3, 7, 13, 40, 24, torch.float32),
+            (2, 9, 64, 300, 130, torch.float32)]
+K3_REPORTED = K3_CASES[0]
+# per scale: the fuse block's 512 -> 256 conv, its 256 -> 256 conv and two
+# 256 -> 256 convs in each of the scale and shift stacks
+K3_PATH_CI = (512, 256, 256, 256, 256, 256)
+# bf16: the kernel and the plain version round one f32 sum each, taken in
+# different orders, so they may differ by one bf16 ulp. The ulp is taken at
+# max(|plain|, rms(plain) / 16): below that magnitude the two sums' order
+# alone (about 2**-24 * K**0.5 * rms, K = 9 * CI) could move a value near 0
+# by more than its own ulp; the floor's ulp is > 10x that.
+K3_BF16_ULP_FLOOR = 16
+K3_F32_TOL = 1e-5        # max |kernel - plain| <= 1e-5 * max |plain|
+K3_ORACLE_WINDOWS = 8    # windows of each case recomputed in f64
+K3_ORACLE_RATIO = 2.0    # kernel's f64 error <= 2x the plain version's
+
+
+def _k3_weight(ci: int, co: int, dtype, tgen) -> torch.Tensor:
+    """(3, 3, ci, co) HWIO with unit output variance for unit inputs."""
+    w = torch.randn(3, 3, ci, co, device=tgen.device, generator=tgen)
+    return (w / math.sqrt(9 * ci)).to(dtype)
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """Largest |got - want| in bf16 ulps of max(|want|, rms(want) / 16),
+    and the share of elements that differ."""
+    g, w = got.float(), want.float()
+    floor = float(w.square().mean().sqrt()) / K3_BF16_ULP_FLOOR
+    _, e = torch.frexp(w.abs().clamp_min(floor))    # m * 2**e, m in [.5, 1)
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)    # bf16 keeps 8 bits
+    d = (g - w).abs()
+    return float((d / ulp).max()), float((d > 0).float().mean())
+
+
+def phase_conv3x3(smi: str) -> tuple:
+    """K3 on its path, then against its plain version.
+
+    The path: the SFT window convs of one serving batch (128 windows) at
+    both scales, chained as the SR net's stacks would run them, through
+    ``conv3x3_same`` (12 launches, counted). Then each of ``K3_CASES``:
+    kernel against plain (bf16 within one ulp, f32 within 1e-5 of the
+    largest value), both against an f64 ``F.conv2d`` on the first windows
+    (the kernel's error at most twice the plain version's), and CUDA-event
+    times of the kernel, the plain version and cuDNN's ``F.conv2d`` on the
+    same data (TF32 off), beside the bound.
+    """
+    dev = torch.device("cuda", 0)
+    tgen = torch.Generator(device=dev).manual_seed(5)
+    _reset_counts()
+    for hw in (32, 64):
+        x = torch.randn(SFT_WINDOWS, hw, hw, 512, device=dev,
+                        generator=tgen).to(torch.bfloat16)
+        for ci in K3_PATH_CI:
+            x = conv3x3_same(x, _k3_weight(ci, 256, torch.bfloat16, tgen))
+        if tuple(x.shape) != (SFT_WINDOWS, hw, hw, 256) or \
+                not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"K3 path at {hw}x{hw}: shape "
+                                 f"{tuple(x.shape)} or non-finite values")
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check_counts("conv3x3", launches, {
+        k: 2 * len(K3_PATH_CI) if k == "conv3x3_same" else 0
+        for k in _WRAPPERS}, "the SFT window convs of one serving batch")
+    del x
+
+    report = {"max_abs_err": 0.0}
+    path = {"kernel": 0.0, "bound": 0.0, "cuDNN": 0.0}   # ms of the path
+    for case in K3_CASES:
+        n, h, w, ci, co, dtype = case
+        dn = str(dtype).removeprefix("torch.")
+        x = torch.randn(n, h, w, ci, device=dev, generator=tgen).to(dtype)
+        wt = _k3_weight(ci, co, dtype, tgen)
+        got = conv3x3_same(x, wt)
+        want = conv3x3_same_plain(x, wt)
+        err = max_abs(got, want)
+        if dtype == torch.bfloat16:
+            ulps, share = _bf16_ulps(got, want)
+            check = (f"{ulps:.3f} ulp (limit 1), {share:.3e} of elements "
+                     f"differ")
+            ok = ulps <= 1.0
+        else:
+            limit = K3_F32_TOL * float(want.abs().max())
+            check = f"limit {limit:.3e}"
+            ok = err <= limit
+        k = min(n, K3_ORACLE_WINDOWS)
+        ref = F.conv2d(x[:k].double().permute(0, 3, 1, 2),
+                       wt.double().permute(3, 2, 0, 1), padding=1
+                       ).permute(0, 2, 3, 1)
+        e_kern = float((got[:k].double() - ref).abs().max())
+        e_plain = float((want[:k].double() - ref).abs().max())
+        del ref
+        flops = 2.0 * n * h * w * 9 * ci * co
+        size = x.element_size()
+        bound_ms, bound_by = _bound(
+            (x.numel() + wt.numel() + n * h * w * co) * size, flops,
+            BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+        big = flops > 1e11
+        x_nchw = x.permute(0, 3, 1, 2)             # NHWC storage, no copy
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: conv3x3_same(x, wt), iters=5 if big else 20)
+        plain_ms = cuda_ms(lambda: conv3x3_same_plain(x, wt),
+                           iters=2 if big else 10, warmup=1)
+        lib_ms = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
+                         iters=5 if big else 20)
+        say(f"[conv3x3] K3 ({n}, {h}, {w}, {ci} -> {co}) {dn}: "
+            f"max_abs_err={err:.3e} ({check}); against f64 over {k} "
+            f"windows: kernel {e_kern:.3e}, plain {e_plain:.3e} (limit "
+            f"{K3_ORACLE_RATIO:g}x plain); kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+            f"({bound_by}), plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms "
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+        if not ok:
+            raise AssertionError(f"conv3x3_same differs from its plain "
+                                 f"version at {case}: {check}, {err}")
+        if not e_kern <= K3_ORACLE_RATIO * e_plain:
+            raise AssertionError(f"conv3x3_same's error against f64 at "
+                                 f"{case} is {e_kern}, plain {e_plain}")
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        if n == SFT_WINDOWS and dtype == torch.bfloat16:
+            uses = K3_PATH_CI.count(ci)         # once per scale
+            for key, t in (("kernel", ms), ("bound", bound_ms),
+                           ("cuDNN", lib_ms)):
+                path[key] += uses * t
+        if case == K3_REPORTED:
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
+        del x, wt, got, want, x_nchw, w_oihw
+    torch.cuda.empty_cache()
+    say(f"[conv3x3] the {2 * len(K3_PATH_CI)} SFT window convs of one "
+        f"serving batch, from the times above: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in path.items()) + f"; on {smi}")
+    return report, launches
+
+
+# ---------------------------------------------------------------------------
+# the page server
+# ---------------------------------------------------------------------------
+
+PAGE_LINES = 48
+# chunking invariance, bucket 16 against bucket 64, held in f32 (TF32 off):
+# cuDNN picks its algorithms by batch size, so sums are taken in other
+# orders, which moves f32 outputs by ~4e-4 of [-1, 1] (0.05 of a level).
+# In bf16 the same reordering moves the random-weight nets' outputs by
+# tens of levels (``_batch_sensitivity`` prints how far), so bf16 is
+# measured and printed, not held.
+# The share's limit is 4x the 5.06e-4 measured on an H100 (pixels whose f32
+# value lies within 4e-4 of a rounding boundary flip by one level).
+PAGE_INVARIANCE_MAX = 1          # uint8 levels
+PAGE_INVARIANCE_SHARE = 2e-3     # of pixels that may differ
+
+
+def _page(gen: np.random.Generator) -> tuple:
+    """A seeded page of ``PAGE_LINES`` line crops stacked down a noise
+    page: heights 40-72 px; widths at height 32 of 64-500 px, and 530-1400
+    px for a quarter of the lines (split into 2-3 segments); each line's
+    text is 2-4 alphabet characters in its first third, 5-8 in the second
+    and 9-16 in the last (so chunks of 16 segments use 4, 8 and 16 slots),
+    with evenly spaced character boxes."""
+    chars = alphabet()
+    heights = gen.integers(40, 73, PAGE_LINES)
+    wide = np.zeros(PAGE_LINES, bool)
+    wide[gen.permutation(PAGE_LINES)[:PAGE_LINES // 4]] = True
+    w32 = np.where(wide, gen.integers(530, 1401, PAGE_LINES),
+                   gen.integers(64, 501, PAGE_LINES))
+    widths = w32 * heights // 32
+    third = np.arange(PAGE_LINES) * 3 // PAGE_LINES
+    n_chars = np.choose(third, [gen.integers(2, 5, PAGE_LINES),
+                                gen.integers(5, 9, PAGE_LINES),
+                                gen.integers(9, 17, PAGE_LINES)])
+    page = gen.integers(0, 256, (int(heights.sum()), int(widths.max()), 3),
+                        dtype=np.uint8)
+    boxes, texts, char_boxes = [], [], []
+    y = 0
+    for h, w, n in zip(heights.tolist(), widths.tolist(), n_chars.tolist()):
+        boxes.append((0, y, w, y + h))
+        texts.append("".join(chars[i] for i in
+                             gen.integers(0, BLANK_INDEX, n)))
+        edges = np.linspace(0.0, w, n + 1)
+        char_boxes.append([(edges[i] + 1.0, 2.0, edges[i + 1] - 1.0,
+                            h - 2.0) for i in range(n)])
+        y += h
+    return page, boxes, texts, char_boxes
+
+
+def _busy(prof) -> tuple:
+    """(device busy ms, window ms) of a ``torch.profiler`` run: the union
+    of the device's activity spans (kernels, copies; CUPTI's "Command
+    Buffer Full" markers are not work), or None when none was recorded."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != _CUPTI_MARKER)
+    if not spans:
+        return None
+    busy, end = 0.0, spans[0][0]          # union of the spans, in us
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy / 1e3, (end - spans[0][0]) / 1e3
+
+
+def _check_page(results, segments, groups, texts, line_boxes) -> None:
+    """One result per line box; stitched widths (each segment shows
+    round(width * 128 / height) columns of its x4 output, at most 2048),
+    texts and prior counts as ``tests/test_serve.py`` expects."""
+    if len(results) != len(line_boxes):
+        raise AssertionError(f"{len(results)} results for "
+                             f"{len(line_boxes)} line boxes")
+    for res, idxs, text in zip(results, groups, texts):
+        want_w = sum(min(int(round(segments[j].image.shape[1] * 128
+                                   / segments[j].image.shape[0])), 2048)
+                     for j in idxs)
+        if res.sr.shape != (128, want_w, 3) or res.sr.dtype != np.uint8:
+            raise AssertionError(f"stitched sr {res.sr.shape} "
+                                 f"{res.sr.dtype}, expected (128, {want_w},"
+                                 f" 3) uint8")
+        if res.text != text or res.priors.shape != (len(text), 128, 128, 3):
+            raise AssertionError(f"text {res.text!r} / priors "
+                                 f"{res.priors.shape} for {text!r}")
+
+
+def _stitch(parts, groups) -> list:
+    return [np.concatenate([parts[j].sr for j in idxs], axis=1)
+            for idxs in groups]
+
+
+def _page_diff(results, stitched) -> tuple:
+    """(largest uint8 difference, share of pixels that differ) between
+    the stitched lines of two runs."""
+    diff = np.concatenate([np.abs(a.sr.astype(int) - b.astype(int)).ravel()
+                           for a, b in zip(results, stitched)])
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def _batch_sensitivity() -> None:
+    """How far restore moves with the batch it runs in: 16 seeded lines
+    (8 slots) alone and as the first half of a batch of 32 (the same 16
+    twice), in bf16 and in f32; largest difference of the encoder's w and
+    of sr over the 16 lines. Printed, not held."""
+    inputs = [t.cuda() for t in _lines(np.random.default_rng(8), 16, 8, 8,
+                                       [0.06 + 0.11 * c for c in range(8)])]
+    doubled = [torch.cat([t, t]) for t in inputs]
+    for dtype in (torch.bfloat16, torch.float32):
+        net = MARCONet(dtype=dtype, device="cuda", seed=0)
+        alone, twice = net.restore(*inputs), net.restore(*doubled)
+        say(f"[page] restore of 16 lines alone vs in a batch of 32, "
+            f"{str(dtype).removeprefix('torch.')}: w max_abs_diff "
+            f"{max_abs(alone.w, twice.w[:16]):.3e}, sr "
+            f"{max_abs(alone.sr, twice.sr[:16]):.3e}")
+        del net, alone, twice
+    torch.cuda.empty_cache()
+
+
+def _page_invariance(page, line_boxes, texts, char_boxes) -> None:
+    """The page's lines of up to 8 characters in f32 (TF32 off), default
+    buckets (one chunk of 64 at 8 slots) against bucket 16: within
+    ``PAGE_INVARIANCE_MAX`` levels on at most ``PAGE_INVARIANCE_SHARE`` of
+    the pixels. (64 lines at 16 slots in f32 do not fit in 80 GB.)"""
+    keep = [i for i, t in enumerate(texts) if len(t) <= 8]
+    line_boxes, texts, char_boxes = ([seq[i] for i in keep] for seq in
+                                     (line_boxes, texts, char_boxes))
+    net = MARCONet(dtype=torch.float32, device="cuda", seed=0)
+    res64 = TextPageRestorer(net).restore_page(page, line_boxes, texts,
+                                               char_boxes)
+    res16 = TextPageRestorer(net, buckets=(16,)).restore_page(
+        page, line_boxes, texts, char_boxes)
+    levels, share = _page_diff(res64, [r.sr for r in res16])
+    say(f"[page] f32, {len(keep)} lines of <= 8 characters, default "
+        f"buckets vs bucket 16: max {levels} uint8 levels, {share:.3e} of "
+        f"pixels differ (limits "
+        f"{PAGE_INVARIANCE_MAX}, {PAGE_INVARIANCE_SHARE:g})")
+    if levels > PAGE_INVARIANCE_MAX or share > PAGE_INVARIANCE_SHARE:
+        raise AssertionError("chunking changed the page's pixels")
+    del net
+    torch.cuda.empty_cache()
+
+
+def phase_page(smi: str) -> dict:
+    """``TextPageRestorer`` on a seeded page, full-width bf16.
+
+    ``restore_page`` with the default buckets, then ``restore_lines`` over
+    the same segments with bucket 16 (>= 4 chunks): one result per line,
+    stitched widths and texts; each bucket-16 result equal to
+    ``_pack_uint8`` of ``MARCONet.restore`` on the same chunk; exact
+    launches of K1 and K2 per chunk; buckets 16 and 64 within one uint8
+    level when the page is run again in f32 (``_page_invariance``);
+    no host synchronisation inside ``restore``. Prints warm lines/s, the
+    host prep and device time per chunk and the device's idle share over
+    the loop (``torch.profiler``).
+    """
+    net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0)
+    page, line_boxes, texts, char_boxes = _page(np.random.default_rng(6))
+    page_server = TextPageRestorer(net)
+    lines16 = TextPageRestorer(net, buckets=(16,))
+    segments, groups = lines16._page_requests(page, line_boxes, texts,
+                                              char_boxes)
+    n_seg = len(segments)
+    n_wide = sum(len(g) > 1 for g in groups)
+    launches = dict.fromkeys(_WRAPPERS, 0)
+
+    def counted(what: str, chunks: int, fn):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _counts()
+        _check_counts("page", got, {k: v * chunks for k, v in
+                                    RESTORE_LAUNCHES.items()}, what)
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    b64 = page_server._bucket(n_seg)
+    page_res = counted(f"restore_page, bucket {b64}", -(-n_seg // b64),
+                       lambda: page_server.restore_page(
+                           page, line_boxes, texts, char_boxes))
+    _check_page(page_res, segments, groups, texts, line_boxes)
+    chunks16 = -(-n_seg // 16)
+    res16 = counted(f"restore_lines, bucket 16, {chunks16} chunks",
+                    chunks16, lambda: lines16.restore_lines(segments))
+    stitched16 = _stitch(res16, groups)
+
+    # each bucket-16 result against restore on the same chunk, called
+    # directly; device time per chunk from CUDA events
+    chunk_ms, slots = [], []
+    for c, start in enumerate(range(0, n_seg, 16)):
+        reqs = segments[start:start + 16]
+        chunk = lines16._chunk(reqs, 16)
+        slots.append(chunk.inputs[1].shape[1])
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = net.restore(*chunk.inputs)
+        sr, priors = _pack_uint8(out.sr), _pack_uint8(out.priors)
+        ev1.record()
+        torch.cuda.synchronize()
+        chunk_ms.append(ev0.elapsed_time(ev1))
+        sr, priors = sr.cpu().numpy(), priors.cpu().numpy()
+        for i, r in enumerate(res16[start:start + 16]):
+            n_ch = r.priors.shape[0]
+            if not (np.array_equal(r.sr, sr[i, :, :r.sr.shape[1]]) and
+                    np.array_equal(r.priors, priors[i, :n_ch])):
+                raise AssertionError(f"chunk {c} line {i}: restore_lines "
+                                     f"differs from restore on its chunk")
+    if set(slots) != {4, 8, 16}:
+        raise AssertionError(f"slot buckets of the chunks: {slots}")
+    say(f"[page] {PAGE_LINES} lines ({n_wide} split) -> {n_seg} segments; "
+        f"bucket 16: {chunks16} chunks with {slots} slots, each result "
+        f"equal to restore + _pack_uint8 on its chunk")
+
+    levels, share = _page_diff(page_res, stitched16)
+    say(f"[page] bf16, buckets {b64} vs 16 (measured, not held): max "
+        f"{levels} uint8 levels, {share:.3e} of pixels differ")
+
+    # no host synchronisation inside restore (it would serialise the loop)
+    chunk = lines16._chunk(segments[:16], 16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _pack_uint8(net.restore(*chunk.inputs).sr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    say(f"[page] host synchronisations inside restore + pack: {len(syncs)}"
+        + "".join(f"\n  {m}" for m in syncs))
+    if syncs:
+        raise AssertionError("restore synchronises with the host")
+
+    # warm throughput, host prep per chunk, idle share of the loop
+    prep = []
+    make_chunk = lines16._chunk
+
+    def timed_chunk(reqs, b):
+        t0 = time.perf_counter()
+        c = make_chunk(reqs, b)
+        prep.append(time.perf_counter() - t0)
+        return c
+
+    lines16._chunk = timed_chunk
+    t0 = time.perf_counter()
+    lines16.restore_page(page, line_boxes, texts, char_boxes)
+    t16 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    page_server.restore_page(page, line_boxes, texts, char_boxes)
+    t64 = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lines16.restore_lines(segments)
+        torch.cuda.synchronize()
+    lines16._chunk = make_chunk
+    busy = _busy(prof)
+    idle = ("not measured (no device time recorded)" if busy is None else
+            f"device busy {busy[0]:.2f} ms of a {busy[1]:.2f} ms window, "
+            f"idle share {100 * (1 - busy[0] / busy[1]):.2f}%")
+    say(f"[page] warm restore_page bf16, bucket 16: {t16 * 1e3:.1f} ms = "
+        f"{PAGE_LINES / t16:.2f} lines/s ({n_seg / t16:.2f} segments/s); "
+        f"default buckets ({b64}): {t64 * 1e3:.1f} ms = "
+        f"{PAGE_LINES / t64:.2f} lines/s; on {smi}")
+    say(f"[page] bucket 16 per chunk: host prep "
+        f"{1e3 * sum(prep[:chunks16]) / chunks16:.2f} ms, device (restore "
+        f"+ pack) {sum(chunk_ms) / len(chunk_ms):.2f} ms "
+        f"({', '.join(f'{m:.2f}' for m in chunk_ms)}); profile of "
+        f"restore_lines: {idle}")
+    del net
+    torch.cuda.empty_cache()
+    _batch_sensitivity()
+    _page_invariance(page, line_boxes, texts, char_boxes)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# style interpolation
+# ---------------------------------------------------------------------------
+
+INTERP_S, INTERP_N = 11, 8
+# f32, TF32 off: a prior batch of 88 slots against one of 8, so cuDNN may
+# take other algorithms and sum in other orders
+INTERP_TOL = 1e-4
+
+
+def phase_interpolate() -> None:
+    """``interpolate_styles`` at full width in f32, S=11 blends of N=8
+    labels between the styles of two encoded lines; its endpoints against
+    ``generate_priors`` at each style."""
+    net = MARCONet(dtype=torch.float32, device="cuda", seed=0)
+    gen = np.random.default_rng(7)
+    lq = torch.from_numpy(gen.uniform(-1, 1, (2, 32, 512, 3))
+                          .astype(np.float32))
+    _, _, w = net.encode(lq)
+    labels = torch.from_numpy(gen.integers(0, BLANK_INDEX, INTERP_N))
+    weights = torch.linspace(0.0, 1.0, INTERP_S)
+    imgs = net.interpolate_styles(w[0], w[1], labels, weights)
+    torch.cuda.synchronize()
+    if tuple(imgs.shape) != (INTERP_S, INTERP_N, 128, 128, 3) or \
+            not bool(torch.isfinite(imgs).all()):
+        raise AssertionError(f"interpolate_styles: {tuple(imgs.shape)} or "
+                             f"non-finite values")
+    errs = []
+    with torch.inference_mode():
+        for i, style in ((0, w[1]), (-1, w[0])):   # weight 0: w2; 1: w1
+            pri = net.generate_priors(style[None], labels[None].cuda())
+            errs.append(max_abs(imgs[i], pri.image.permute(0, 2, 3, 1)))
+    ms = cuda_ms(lambda: net.interpolate_styles(w[0], w[1], labels,
+                                                weights), iters=3, warmup=1)
+    say(f"[interpolate] f32 S={INTERP_S} N={INTERP_N}: endpoints against "
+        f"generate_priors max_abs_diff {errs[0]:.3e} (w2), {errs[1]:.3e} "
+        f"(w1) (limit {INTERP_TOL:g}); {ms:.2f} ms")
+    if max(errs) > INTERP_TOL:
+        raise AssertionError(f"interpolate_styles endpoints differ by "
+                             f"{errs}")
+    del net
+    torch.cuda.empty_cache()
+
 
 
 def _train_arrays(gen: np.random.Generator, batch: int, slots: int):
@@ -739,7 +1248,7 @@ def phase_train_parity() -> None:
     gpu_s = time.perf_counter() - t0
     cot_gpu.close()
     launches = _counts()
-    if min(launches.values()) == 0:
+    if min(launches[k] for k, v in TRAIN_LAUNCHES.items() if v) == 0:
         raise AssertionError(f"a kernel did not launch in the card's step: "
                              f"{launches}")
     rtol, atol = PARITY_LOSS_TOL
@@ -859,21 +1368,10 @@ def _profile_step(trainer, batch) -> None:
                              ProfilerActivity.CUDA]) as prof:
         trainer.train_step(batch)
         torch.cuda.synchronize()
-    # device activity (kernels, copies); CUPTI's "Command Buffer Full"
-    # markers are not work
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != _CUPTI_MARKER)
-    if not spans:
+    if _busy(prof) is None:
         say("[train] profile: no device time recorded (not measured)")
         return
-    busy, end = 0.0, spans[0][0]          # union of the spans, in us
-    for lo, hi in spans:
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    busy /= 1e3
-    window = (end - spans[0][0]) / 1e3
+    busy, window = _busy(prof)
     ops = sorted(((e.self_device_time_total, e.key)
                   for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU
@@ -890,12 +1388,16 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     report = phase_kernels()
+    report["conv3x3_same"], k3 = phase_conv3x3(smi)
     phase_parity()
     serve = phase_serve(smi)
+    page = phase_page(smi)
+    phase_interpolate()
     phase_train_parity()
     train = phase_train(smi)
     kernels = [dict(name=name, **KERNELS[name],
-                    launches=serve[name] + train[name], **report[name])
+                    launches=k3[name] + serve[name] + page[name]
+                    + train[name], **report[name])
                for name in KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ from __future__ import annotations
 import functools
 import os
 
+import numpy as np
+
 _ASSET = os.path.join(os.path.dirname(__file__), "assets", "alphabet.txt")
 
 BLANK_INDEX = 6735               # = len(alphabet()); the last class
@@ -30,6 +32,13 @@ def alphabet() -> str:
     return text
 
 
+def labels_from_text(text: str) -> list[int]:
+    """String -> class labels, -1 for a character outside the alphabet
+    (reference ``test_sr.py:24-29``, which uses ``str.find``)."""
+    chars = alphabet()
+    return [chars.find(t) for t in text]
+
+
 def text_from_labels(labels) -> str:
     """Class labels -> string; the blank renders as nothing
     (reference ``test_sr.py:31-35``)."""
@@ -42,3 +51,20 @@ def text_from_labels(labels) -> str:
         elif label != BLANK_INDEX:
             raise ValueError(f"label {label} out of range")
     return "".join(out)
+
+
+def collapse_ctc_labels(class_logits) -> list[int]:
+    """CTC collapse of per-token argmax predictions: repeats of the
+    previous token and the blank are dropped (reference ``test_w.py:34-40``).
+
+    Args:
+      class_logits: (T, num_classes) per-token logits (array-like).
+    """
+    preds = np.asarray(class_logits).argmax(axis=1)
+    labels = []
+    for i, p in enumerate(preds):
+        if i > 0 and preds[i - 1] == p:
+            continue
+        if p < BLANK_INDEX:
+            labels.append(int(p))
+    return labels

@@ -1,0 +1,377 @@
+// K3: 3x3 stride-1 zero-SAME convolution as an implicit GEMM.
+//
+// Replaces the TPU kernel marconet_tpu/ops/pallas_conv.py::_conv3x3_kernel
+// (launched by conv3x3_same), written for the SR net's windowed SFT conv
+// stacks: fuse, scale and shift over B*N windows of 32x32 or 64x64 pixels at
+// 256-512 -> 256 channels.
+//
+//   out[n, y, x, co] = sum over dy, dx in {0,1,2}, ci < CI of
+//       x[n, y+dy-1, x+dx-1, ci] * w[dy, dx, ci, co]     (0 outside the image)
+//
+// x (N, H, W, CI) NHWC, w (3, 3, CI, CO) HWIO, out (N, H, W, CO), all
+// contiguous and of one dtype; the sum is taken in f32 and rounded once to
+// the output dtype. Any N, H, W, CI and CO (edges are masked).
+//
+// The GEMM: M = N*H*W output pixels, N = CO, K = 9*CI, with A[m, k] the input
+// pixel under tap k / CI of output pixel m (zero where the tap leaves the
+// image) and B the weights viewed as a (9*CI, CO) row-major matrix. No
+// patch matrix is built: each block gathers its A tile straight from x with
+// predicated loads (the zero border costs no padded copy, as the TPU
+// kernel's per-tap edge slices did), stages it and the B tile in shared
+// memory, and keeps its f32 sums in registers across the whole K loop.
+//
+// Bound: operations. At the serving batch's largest SFT conv (N=128
+// windows of 64x64, 512 -> 256 channels) the GEMM does 2*M*K*CO = 1.237
+// TFLOP while the inputs and output move ~0.8 GB, about 1500 flop/byte, far
+// above the H100's ~295 flop/byte ridge. So the least time is 1.25 ms at the
+// 989 TFLOP/s bf16 tensor-core peak and 18.5 ms at the 67 TFLOP/s f32 peak
+// outside the tensor cores. What the design does about it:
+//
+// * bf16 runs on the tensor cores through mma.sync (nvcuda::wmma 16x16x16,
+//   f32 accumulate). A 256-thread block owns a 128-pixel x 128-channel
+//   output tile; each of its 8 warps owns 32 x 64 of it (8 accumulator
+//   fragments), and every A and B fragment loaded from shared memory feeds
+//   4 and 2 products. K advances 32 channels of one tap at a time; the next
+//   K tile's global loads are issued into registers before the current
+//   tile's products, and two shared buffers alternate, so one barrier per K
+//   tile suffices. Loads are 16 bytes wide when CI and CO are multiples of 8.
+// * f32 stays f32 (no TF32: the port's f32 parity gates assume full f32
+//   products): a 64 x 64 tile per 256-thread block, each thread 4 x 4 sums
+//   with fmaf from float4 reads of shared memory. Each K tile's 16 products
+//   are summed apart before joining the running sum, which keeps the
+//   rounding error near that of the plain version's per-tap matmuls.
+//
+// This is the simple form. The tensor cores' full rate on Hopper needs
+// wgmma fed by TMA through a multi-stage shared-memory ring, which is left
+// to later work; PERF.md keeps this kernel's time beside its bound.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace marconet {
+namespace {
+
+using namespace nvcuda;
+
+struct ConvShape {
+  int N, H, W, CI, CO;
+  int64_t M;  // N * H * W output pixels
+};
+
+// Where output pixel m's tap (dy, dx) reads x, as an element offset of
+// channel 0, or -1 outside the image (or past the last pixel).
+struct PixelRef {
+  int64_t base;  // m * CI
+  int y, x;
+  bool valid;
+};
+
+__device__ __forceinline__ PixelRef pixel_ref(const ConvShape& s, int64_t m) {
+  PixelRef p;
+  p.valid = m < s.M;
+  const int64_t mm = p.valid ? m : 0;
+  const int hw = (int)(mm % ((int64_t)s.H * s.W));
+  p.y = hw / s.W;
+  p.x = hw - p.y * s.W;
+  p.base = mm * s.CI;
+  return p;
+}
+
+__device__ __forceinline__ int64_t tap_offset(const ConvShape& s,
+                                              const PixelRef& p, int dy,
+                                              int dx) {
+  const int iy = p.y + dy - 1, ix = p.x + dx - 1;
+  if (!p.valid || iy < 0 || iy >= s.H || ix < 0 || ix >= s.W) return -1;
+  return p.base + ((int64_t)(dy - 1) * s.W + (dx - 1)) * s.CI;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kTcThreads = 256;
+constexpr int kAStride = kBK + 8;  // bf16 per shared A row (80 bytes)
+constexpr int kBStride = kBN + 8;  // bf16 per shared B row (272 bytes)
+
+// Eight consecutive bf16 starting at p, of which the first `count` exist
+// (the rest, and all when count <= 0, are zero).
+template <bool kVec>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int count) {
+  if (count <= 0) return make_uint4(0, 0, 0, 0);
+  if (kVec) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint4 v;
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = i < count ? p[i] : __float2bfloat16(0.f);
+  return v;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kTcThreads)
+    conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ out, ConvShape s,
+                        int n_tiles) {
+  __shared__ __align__(128) __nv_bfloat16 As[2][kBM][kAStride];
+  __shared__ __align__(128) __nv_bfloat16 Bs[2][kBK][kBStride];
+  __shared__ __align__(128) float scratch[kTcThreads / 32][16 * 16];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int co0 = (int)(blockIdx.x % n_tiles) * kBN;
+  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kBM;
+
+  // this thread's loads: A rows a_row[i] at channels a_k..a_k+7 of the K
+  // tile, B rows b_row[i] at output channels b_n..b_n+7
+  const int a_k = (tid % 4) * 8;
+  PixelRef a_pix[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) a_pix[i] = pixel_ref(s, m0 + tid / 4 + 64 * i);
+  const int b_n = (tid % 16) * 8;
+  const int b_count = s.CO - (co0 + b_n);
+
+  const int nkc = (s.CI + kBK - 1) / kBK;
+  const int k_tiles = 9 * nkc;
+  uint4 a_reg[2], b_reg[2];
+
+  auto load_tile = [&](int kt) {
+    const int tap = kt / nkc;
+    const int ci0 = (kt - tap * nkc) * kBK;
+    const int dy = tap / 3, dx = tap % 3;
+    const int ci = ci0 + a_k;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t off = tap_offset(s, a_pix[i], dy, dx);
+      a_reg[i] = load8<kVec>(x + (off < 0 ? 0 : off + ci),
+                             off < 0 ? 0 : s.CI - ci);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int cib = ci0 + tid / 16 + 16 * i;
+      const int64_t row = (int64_t)tap * s.CI + cib;
+      b_reg[i] = load8<kVec>(w + (cib < s.CI ? row * s.CO + co0 + b_n : 0),
+                             cib < s.CI ? b_count : 0);
+    }
+  };
+  auto store_tile = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      *reinterpret_cast<uint4*>(&As[buf][tid / 4 + 64 * i][a_k]) = a_reg[i];
+      *reinterpret_cast<uint4*>(&Bs[buf][tid / 16 + 16 * i][b_n]) = b_reg[i];
+    }
+  };
+
+  const int wm = (warp / 2) * 32;  // the warp's 32 x 64 piece of the tile
+  const int wn = (warp % 2) * 64;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < k_tiles) load_tile(kt + 1);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[buf][wm + 16 * i][kk], kAStride);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[buf][kk][wn + 16 * j], kBStride);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j],
+                                                   acc[i][j]);
+    }
+    // buffer buf ^ 1 was last read in iteration kt - 1, before the barrier
+    // that ended it
+    if (kt + 1 < k_tiles) store_tile(buf ^ 1);
+    __syncthreads();
+  }
+
+  // epilogue: each fragment through the warp's scratch, rounded once, stored
+  // with the pixel and channel edges masked
+  float* sc = scratch[warp];
+  const int r = lane / 2, c = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int64_t m = m0 + wm + 16 * i + r;
+      const int co = co0 + wn + 16 * j + c;
+      if (m < s.M) {
+        __nv_bfloat16* o = out + m * s.CO + co;
+        if (kVec && co + 8 <= s.CO) {
+          uint4 v;
+          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) e[q] = __float2bfloat16_rn(sc[r * 16 + c + q]);
+          *reinterpret_cast<uint4*>(o) = v;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (co + q < s.CO) o[q] = __float2bfloat16_rn(sc[r * 16 + c + q]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: register-tiled FMA, no TF32
+// ---------------------------------------------------------------------------
+
+constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
+constexpr int kFThreads = 256;
+constexpr int kFStride = kFBM + 4;  // floats per shared row (272 bytes)
+
+__global__ void __launch_bounds__(kFThreads)
+    conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       float* __restrict__ out, ConvShape s, int n_tiles) {
+  __shared__ __align__(16) float As[2][kFBK][kFStride];  // [k][pixel]
+  __shared__ __align__(16) float Bs[2][kFBK][kFStride];  // [k][channel]
+
+  const int tid = threadIdx.x;
+  const int co0 = (int)(blockIdx.x % n_tiles) * kFBN;
+  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kFBM;
+
+  const int a_row = tid / 4, a_k = (tid % 4) * 4;
+  const PixelRef a_pix = pixel_ref(s, m0 + a_row);
+  const int b_k = tid / 16, b_n = (tid % 16) * 4;
+
+  const int nkc = (s.CI + kFBK - 1) / kFBK;
+  const int k_tiles = 9 * nkc;
+  float a_reg[4], b_reg[4];
+
+  auto load_tile = [&](int kt) {
+    const int tap = kt / nkc;
+    const int ci0 = (kt - tap * nkc) * kFBK;
+    const int64_t off = tap_offset(s, a_pix, tap / 3, tap % 3);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ci = ci0 + a_k + q;
+      a_reg[q] = (off >= 0 && ci < s.CI) ? __ldg(x + off + ci) : 0.f;
+    }
+    const int cib = ci0 + b_k;
+    const int64_t row = ((int64_t)tap * s.CI + cib) * s.CO;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int co = co0 + b_n + q;
+      b_reg[q] = (cib < s.CI && co < s.CO) ? __ldg(w + row + co) : 0.f;
+    }
+  };
+  auto store_tile = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) As[buf][a_k + q][a_row] = a_reg[q];
+    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) =
+        make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
+  };
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < k_tiles) load_tile(kt + 1);
+    // the tile's 16 products are summed apart, then added to the running
+    // sums: a two-level sum whose rounding error grows with K / 16 + 16
+    // rather than K
+    float part[4][4] = {};
+#pragma unroll
+    for (int k = 0; k < kFBK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+    if (kt + 1 < k_tiles) store_tile(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t m = m0 + ty * 4 + i;
+    if (m >= s.M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = co0 + tx * 4 + j;
+      if (co < s.CO) out[m * s.CO + co] = acc[i][j];
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace
+}  // namespace marconet
+
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int marconet_conv3x3_same(const void* x, const void* w, void* out,
+                                     int N, int H, int W, int CI, int CO,
+                                     int dtype, void* stream) {
+  using namespace marconet;
+  if (N <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0)
+    return (int)cudaErrorInvalidValue;
+  ConvShape s{N, H, W, CI, CO, (int64_t)N * H * W};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: {
+      const int n_tiles = (CO + kFBN - 1) / kFBN;
+      const int64_t blocks = ((s.M + kFBM - 1) / kFBM) * n_tiles;
+      if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+      conv3x3_f32_kernel<<<(unsigned)blocks, kFThreads, 0, st>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w),
+          static_cast<float*>(out), s, n_tiles);
+      break;
+    }
+    case kBFloat16: {
+      const int n_tiles = (CO + kBN - 1) / kBN;
+      const int64_t blocks = ((s.M + kBM - 1) / kBM) * n_tiles;
+      if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+      const auto* xb = static_cast<const __nv_bfloat16*>(x);
+      const auto* wb = static_cast<const __nv_bfloat16*>(w);
+      auto* ob = static_cast<__nv_bfloat16*>(out);
+      const bool vec = CI % 8 == 0 && CO % 8 == 0 && aligned16(x) &&
+                       aligned16(w) && aligned16(out);
+      if (vec)
+        conv3x3_bf16_kernel<true>
+            <<<(unsigned)blocks, kTcThreads, 0, st>>>(xb, wb, ob, s, n_tiles);
+      else
+        conv3x3_bf16_kernel<false>
+            <<<(unsigned)blocks, kTcThreads, 0, st>>>(xb, wb, ob, s, n_tiles);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -84,6 +84,22 @@ class MARCONet(nn.Module):
         self.eval()
         self.dtype, self.device = dtype, device
 
+    def _nchw_input(self, lq: torch.Tensor) -> torch.Tensor:
+        """lq (B, 32, 512, 3) NHWC -> the nets' input: NCHW channels_last
+        in the pipeline's dtype, on its device."""
+        if lq.dim() != 4 or tuple(lq.shape[1:]) != (32, 512, 3):
+            raise ValueError(f"lq must be (B, 32, 512, 3), got "
+                             f"{tuple(lq.shape)}")
+        return lq.to(device=self.device, dtype=self.dtype).permute(
+            0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+    @torch.inference_mode()
+    def encode(self, lq: torch.Tensor):
+        """lq (B, 32, 512, 3) NHWC in [-1, 1] -> (logits (B, 64,
+        num_classes), pred_locs (B, 32), w (B, w_dim)): the text-context
+        encoder alone."""
+        return self.encoder(self._nchw_input(lq))
+
     def generate_priors(self, w: torch.Tensor, labels: torch.Tensor
                         ) -> PriorOutput:
         """w (B, w_dim), labels (B, N) -> priors of the B*N slots, flat
@@ -114,9 +130,8 @@ class MARCONet(nn.Module):
                              f"{tuple(lq.shape)}")
         if locs.shape != (b, 2 * n) or char_mask.shape != (b, n):
             raise ValueError("locs must be (B, 2N) and char_mask (B, N)")
-        dev, dt = self.device, self.dtype
-        x = lq.to(device=dev, dtype=dt).permute(0, 3, 1, 2) \
-            .contiguous(memory_format=torch.channels_last)
+        dev = self.device
+        x = self._nchw_input(lq)
         labels = labels.to(device=dev, dtype=torch.long)
         locs = locs.to(device=dev, dtype=torch.float32)
         char_mask = char_mask.to(device=dev, dtype=torch.float32)
@@ -129,3 +144,32 @@ class MARCONet(nn.Module):
             b, n, *pri.image.shape[2:], 3)
         return RestoreOutput(sr.permute(0, 2, 3, 1), priors, logits,
                              pred_locs, w)
+
+    @torch.inference_mode()
+    def interpolate_styles(self, w1: torch.Tensor, w2: torch.Tensor,
+                           labels: torch.Tensor, weights: torch.Tensor
+                           ) -> torch.Tensor:
+        """Glyph priors of ``labels`` under blends of two styles (reference
+        ``test_w.py:102-115``).
+
+        Blend ``s`` is ``w1 * s + w2 * (1 - s)`` (in f32). The S blends of
+        the N labels run as one prior batch of S * N slots (blend-major),
+        where the JAX package vmaps over the blends.
+
+        Args:
+          w1, w2: (w_dim,) style vectors.
+          labels: (N,) int char labels.
+          weights: (S,) blend weights in [0, 1].
+        Returns:
+          (S, N, 128, 128, 3) glyph prior images, NHWC.
+        """
+        dev = self.device
+        w1, w2 = (t.to(device=dev, dtype=torch.float32) for t in (w1, w2))
+        s = weights.to(device=dev, dtype=torch.float32)[:, None]
+        styles = (w1[None] * s + w2[None] * (1.0 - s)).to(self.dtype)
+        n = labels.shape[0]
+        labels = labels.to(device=dev, dtype=torch.long)
+        img = self.prior(styles.repeat_interleave(n, dim=0),
+                         labels.repeat(s.shape[0])).image
+        return img.permute(0, 2, 3, 1).reshape(s.shape[0], n,
+                                               *img.shape[2:], 3)

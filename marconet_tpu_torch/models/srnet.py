@@ -31,7 +31,7 @@ from marconet_tpu_torch.ops.layers import (
     nchw,
     nhwc,
 )
-from marconet_tpu_torch.ops.resize import upsample2x_bilinear
+from marconet_tpu_torch.ops.resize import Upsample2x, upsample2x_bilinear
 from marconet_tpu_torch.ops.sft_writeback import sft_writeback
 from marconet_tpu_torch.ops.window import (
     gather_windows,
@@ -148,9 +148,8 @@ class StructurePriorSRNet(nn.Module):
         def lrelu():
             return nn.LeakyReLU(0.2)
 
-        def up():   # = upsample2x_bilinear
-            return nn.Upsample(scale_factor=2, mode="bilinear",
-                               align_corners=False)
+        def up():
+            return Upsample2x()
 
         self.conv_first_32 = nn.Sequential(sn(3, d // 4), lrelu())
         self.conv_first_16 = nn.Sequential(sn(d // 4, d // 2, 2), lrelu())

@@ -120,6 +120,8 @@ def library() -> ctypes.CDLL:
     lib.marconet_sft_writeback_bwd.argtypes = [p, p, p, p, p,
                                                i, i, i, i, i, i, i, p]
     lib.marconet_sft_writeback_bwd.restype = i
+    lib.marconet_conv3x3_same.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.marconet_conv3x3_same.restype = i
     return lib
 
 

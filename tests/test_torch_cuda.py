@@ -8,15 +8,19 @@ there without the suite's JAX-configuring conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Every kernel does its math in f32 and rounds once, like its plain
-version, so every comparison is exact. The backward kernels (K1b and the
-write-back's) are also driven through autograd, to show that gradients
-reach the inputs through both kernels.
+version. K1, K1b and K2 sum nothing, so their comparisons are exact; K3
+(``conv3x3_same``) sums 9 * CI products in another order than its plain
+version, so it is held within one bf16 ulp in bf16 and within 1e-5 of the
+largest value in f32 (the limits of ``chip_smoke.py``). The backward
+kernels (K1b and the write-back's) are also driven through autograd, to
+show that gradients reach the inputs through both kernels.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from marconet_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
 from marconet_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_bwd,
@@ -227,3 +231,53 @@ def test_window_ops_differentiate_on_cuda(dev, op):
         outs.append((y.detach().cpu(), xt.grad.cpu()))
     torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=0)
     torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-6, atol=1e-6)
+
+
+# (N, H, W, CI, CO): one pixel, ragged channels (the scalar-load path),
+# CI and CO multiples of 8 (16-byte loads) with a partial channel tile,
+# and the TPU kernel's test shape
+K3_SHAPES = [(1, 1, 1, 5, 3), (3, 7, 13, 40, 24), (2, 9, 64, 300, 130),
+             (1, 17, 5, 8, 136), (2, 8, 8, 256, 128)]
+
+
+def _k3_inputs(dev, dtype, shape):
+    n, h, w, ci, co = shape
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(n, h, w, ci, device=dev, generator=g).to(dtype)
+    k = torch.randn(3, 3, ci, co, device=dev, generator=g) / (9 * ci) ** 0.5
+    return x, k.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_conv3x3_matches_plain(dev, dtype, shape):
+    x, k = _k3_inputs(dev, dtype, shape)
+    before = conv3x3_same.launches
+    got = conv3x3_same(x, k)
+    torch.cuda.synchronize()
+    assert conv3x3_same.launches == before + 1
+    assert got.shape == shape[:3] + (shape[4],) and got.dtype == dtype
+    want = conv3x3_same_plain(x, k).float()
+    d = (got.float() - want).abs()
+    if dtype == torch.bfloat16:
+        # one ulp of max(|plain|, rms(plain) / 16), as chip_smoke.py
+        floor = float(want.square().mean().sqrt()) / 16
+        _, e = torch.frexp(want.abs().clamp_min(floor))
+        assert bool((d <= torch.ldexp(torch.ones_like(d), e - 8)).all())
+    else:
+        assert float(d.max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("bad", ["float16", "x strided", "w strided"])
+def test_conv3x3_raises_without_launching(dev, bad):
+    x, k = _k3_inputs(dev, torch.float32, (2, 6, 6, 16, 8))
+    if bad == "float16":
+        x, k = x.half(), k.half()
+    elif bad == "x strided":
+        x = x[:, :, ::2]
+    else:
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    before = conv3x3_same.launches
+    with pytest.raises(ValueError):
+        conv3x3_same(x, k)
+    assert conv3x3_same.launches == before

@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
-without JAX, so no module of it may import ``jax``, ``flax`` or ``optax``,
-or any ``marconet_tpu`` module (the port keeps its own copies of the
+without JAX, cv2 or PIL, so no module of it (nor ``chip_smoke.py``) may
+import ``jax``, ``flax``, ``optax``, ``cv2`` or ``PIL``, or any
+``marconet_tpu`` module (the port keeps its own copies of the
 framework-free ``alphabet`` and ``version``). Checked on the source
 (AST), for every module, and in a fresh interpreter."""
 
@@ -10,7 +11,7 @@ import pathlib
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "marconet_tpu_torch"
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL"}
 ALLOWED_JAX_PKG: set = set()
 MODULES = sorted(PKG.rglob("*.py"))
 
@@ -34,7 +35,8 @@ def test_package_has_modules():
             "models/pipeline.py", "alphabet.py", "version.py",
             "train/train_step.py", "train/losses.py", "train/lpips.py",
             "train/discriminators.py", "train/checkpoint.py",
-            "data/batch_prep.py"} <= names
+            "data/batch_prep.py", "ops/conv3x3.py", "serve.py",
+            "utils/image.py"} <= names
 
 
 @pytest.mark.parametrize("path", MODULES,
@@ -52,7 +54,8 @@ def test_module_imports_no_jax(path):
 
 def test_chip_smoke_imports_no_jax_package():
     """The card smoke takes everything from the port: it may not name any
-    ``marconet_tpu`` module, not even the framework-free ones."""
+    ``marconet_tpu`` module, not even the framework-free ones, nor cv2 or
+    PIL."""
     smoke = PKG.parent / "chip_smoke.py"
     bad = [name for name in _imports(smoke)
            if name.split(".")[0] in FORBIDDEN_ROOTS | {"marconet_tpu"}]
@@ -60,18 +63,20 @@ def test_chip_smoke_imports_no_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    """The same property at run time, in a fresh interpreter: no JAX and
-    no module of the JAX package gets loaded."""
+    """The same property at run time, in a fresh interpreter: no JAX, cv2
+    or PIL and no module of the JAX package gets loaded, by the port or
+    by ``chip_smoke.py``."""
     import subprocess
     import sys
 
     mods = [".".join(("marconet_tpu_torch",) + p.relative_to(PKG)
                      .with_suffix("").parts).removesuffix(".__init__")
             for p in MODULES]
+    roots = tuple(sorted(FORBIDDEN_ROOTS | {"marconet_tpu"}))
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                                    'optax', 'marconet_tpu'))\n"
+            f"             if m.split('.')[0] in {roots!r})\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                           capture_output=True, text=True, timeout=300)
