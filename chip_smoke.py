@@ -16,13 +16,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    versions at the serving and training paths' shapes, f32 and bf16; max
    abs difference (expected 0: all do f32 math and round once), CUDA-event
    times of both, and each kernel's bound (the larger of its bytes over
-   the card's memory rate and its operations over the f32 peak).
+   the card's memory rate and its operations over the f32 peak); K1's
+   achieved GB/s beside the memory rate.
 4. conv3x3: K3 (the 3x3 implicit-GEMM conv) on its path, the SFT window
-   convs of one serving batch (12 launches, counted); then against its
-   plain version at the four SFT window shapes in bf16 (within one bf16
-   ulp), the largest in f32 (within 1e-5 of the largest value) and two
-   ragged shapes, both against f64 ``F.conv2d``; kernel, bound, plain and
-   cuDNN times.
+   convs of one serving batch (12 launches, counted, all on the TMA +
+   wgmma kernel); then against its plain version at the four SFT window
+   shapes in bf16 (within one bf16 ulp), the largest in f32 (within 1e-5
+   of the largest value) and two ragged shapes, both against f64
+   ``F.conv2d``; kernel, bound, plain and cuDNN times. At the four SFT
+   shapes the general mma.sync kernel runs on the same inputs too, held to
+   the same ulp and timed beside the wgmma one, which must be faster.
 5. parity: full-width f32 ``restore`` (B=1, 4 slots, 3 valid) on the card
    (kernels, TF32 off) against the CPU (plain versions), same seeded
    weights, within the tolerances of
@@ -82,7 +85,12 @@ from marconet_tpu_torch.alphabet import alphabet
 from marconet_tpu_torch.models.pipeline import BLANK_INDEX, MARCONet
 from marconet_tpu_torch.models.srnet import window_geometry
 from marconet_tpu_torch.ops.layers import nchw
-from marconet_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
+from marconet_tpu_torch.ops.conv3x3 import (
+    _conv3x3_mma_sync,
+    conv3x3_path,
+    conv3x3_same,
+    conv3x3_same_plain,
+)
 from marconet_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_bwd,
@@ -131,7 +139,8 @@ KERNELS = {
         route="cuda", source="marconet_tpu_torch/csrc/sft_writeback.cu",
         replaces="none"),
     "conv3x3_same": dict(
-        route="cuda", source="marconet_tpu_torch/csrc/conv3x3.cu",
+        route="cuda", source="marconet_tpu_torch/csrc/conv3x3_wgmma.cu",
+        general_source="marconet_tpu_torch/csrc/conv3x3.cu",
         replaces="marconet_tpu/ops/pallas_conv.py:39"),
 }
 # launches per training step: 19 StyledConv / style-MLP activations in the
@@ -296,9 +305,14 @@ def phase_kernels() -> dict:
             for name, short, kern, plain, (bound_ms, bound_by) in cases:
                 err = max_abs(kern(), plain())
                 ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+                rate = ""
+                if name == "fused_leaky_relu":    # x and y once, the bias
+                    nbytes = (2 * n + c) * size
+                    rate = (f", {nbytes / ms / 1e6:.1f} GB/s of "
+                            f"{HBM_BYTES_PER_S / 1e9:.0f}")
                 say(f"[kernels] {short} {label} {dn}: max_abs_err={err} "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{bound_ms:.4f} ms ({bound_by})")
+                    f"kernel {ms:.4f} ms{rate}, plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by})")
                 _check_exact(name, f"{label}, {dn}", err)
                 rep = report[name]
                 rep["max_abs_err"] = max(rep["max_abs_err"], err)
@@ -427,6 +441,8 @@ _WRAPPERS = {"fused_leaky_relu": fused_leaky_relu,
 def _reset_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    conv3x3_same.launches_by_path = dict.fromkeys(
+        conv3x3_same.launches_by_path, 0)
 
 
 def _counts() -> dict:
@@ -543,17 +559,27 @@ def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> tuple:
     return float((d / ulp).max()), float((d > 0).float().mean())
 
 
+def _k3_old_design(x, wt, want, iters: int) -> tuple:
+    """The general mma.sync kernel on an SFT case that the rule sends to
+    wgmma: (its largest error in bf16 ulps of the plain version, ms)."""
+    ulps, _ = _bf16_ulps(_conv3x3_mma_sync(x, wt), want)
+    return ulps, cuda_ms(lambda: _conv3x3_mma_sync(x, wt), iters=iters)
+
+
 def phase_conv3x3(smi: str) -> tuple:
     """K3 on its path, then against its plain version.
 
     The path: the SFT window convs of one serving batch (128 windows) at
     both scales, chained as the SR net's stacks would run them, through
-    ``conv3x3_same`` (12 launches, counted). Then each of ``K3_CASES``:
-    kernel against plain (bf16 within one ulp, f32 within 1e-5 of the
-    largest value), both against an f64 ``F.conv2d`` on the first windows
-    (the kernel's error at most twice the plain version's), and CUDA-event
-    times of the kernel, the plain version and cuDNN's ``F.conv2d`` on the
-    same data (TF32 off), beside the bound.
+    ``conv3x3_same`` (12 launches, counted, every one on the wgmma kernel).
+    Then each of ``K3_CASES``: kernel against plain (bf16 within one ulp,
+    f32 within 1e-5 of the largest value), both against an f64
+    ``F.conv2d`` on the first windows (the kernel's error at most twice the
+    plain version's), and CUDA-event times of the kernel, the plain version
+    and cuDNN's ``F.conv2d`` on the same data (TF32 off), beside the bound.
+    At the four SFT shapes the general mma.sync kernel (the design the
+    wgmma kernel replaced there) runs on the same inputs, within the same
+    ulp, timed in turns with the wgmma kernel, which must be the faster.
     """
     dev = torch.device("cuda", 0)
     tgen = torch.Generator(device=dev).manual_seed(5)
@@ -569,18 +595,30 @@ def phase_conv3x3(smi: str) -> tuple:
                                  f"{tuple(x.shape)} or non-finite values")
     torch.cuda.synchronize()
     launches = _counts()
+    by_path = dict(conv3x3_same.launches_by_path)
     _check_counts("conv3x3", launches, {
         k: 2 * len(K3_PATH_CI) if k == "conv3x3_same" else 0
         for k in _WRAPPERS}, "the SFT window convs of one serving batch")
+    say(f"[conv3x3] K3 launches by path over those convs: {by_path}")
+    if by_path != {"wgmma": 2 * len(K3_PATH_CI), "mma_sync": 0}:
+        raise AssertionError(f"the SFT window convs did not all take the "
+                             f"wgmma kernel: {by_path}")
     del x
 
     report = {"max_abs_err": 0.0}
-    path = {"kernel": 0.0, "bound": 0.0, "cuDNN": 0.0}   # ms of the path
+    # ms of the path's 12 convs
+    path = {"wgmma": 0.0, "mma.sync": 0.0, "bound": 0.0, "cuDNN": 0.0}
     for case in K3_CASES:
         n, h, w, ci, co, dtype = case
         dn = str(dtype).removeprefix("torch.")
         x = torch.randn(n, h, w, ci, device=dev, generator=tgen).to(dtype)
         wt = _k3_weight(ci, co, dtype, tgen)
+        route = conv3x3_path(tuple(x.shape), tuple(wt.shape), dtype,
+                             x.data_ptr() % 16 == 0
+                             and wt.data_ptr() % 16 == 0)
+        sft = n == SFT_WINDOWS and dtype == torch.bfloat16
+        if sft and route != "wgmma":
+            raise AssertionError(f"{case} takes {route}, not wgmma")
         got = conv3x3_same(x, wt)
         want = conv3x3_same_plain(x, wt)
         err = max_abs(got, want)
@@ -605,22 +643,31 @@ def phase_conv3x3(smi: str) -> tuple:
         bound_ms, bound_by = _bound(
             (x.numel() + wt.numel() + n * h * w * co) * size, flops,
             BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
-        big = flops > 1e11
+        iters = 5 if flops > 1e11 else 20
         x_nchw = x.permute(0, 3, 1, 2)             # NHWC storage, no copy
         w_oihw = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        ms = cuda_ms(lambda: conv3x3_same(x, wt), iters=5 if big else 20)
+        ms = cuda_ms(lambda: conv3x3_same(x, wt), iters=iters)
+        old = ""
+        if sft:     # in turns: wgmma, mma.sync, mma.sync, wgmma
+            old_ulps, old_a = _k3_old_design(x, wt, want, iters)
+            old_ulps, old_b = _k3_old_design(x, wt, want, iters)
+            old_ms = (old_a + old_b) / 2
+            ms = (ms + cuda_ms(lambda: conv3x3_same(x, wt), iters=iters)) / 2
+            old = (f"; the mma.sync kernel on the same inputs {old_ms:.4f} "
+                   f"ms ({old_ulps:.3f} ulp), {old_ms / ms:.2f}x the wgmma "
+                   f"kernel's time")
         plain_ms = cuda_ms(lambda: conv3x3_same_plain(x, wt),
-                           iters=2 if big else 10, warmup=1)
+                           iters=2 if iters == 5 else 10, warmup=1)
         lib_ms = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
-                         iters=5 if big else 20)
-        say(f"[conv3x3] K3 ({n}, {h}, {w}, {ci} -> {co}) {dn}: "
+                         iters=iters)
+        say(f"[conv3x3] K3 ({n}, {h}, {w}, {ci} -> {co}) {dn}, {route}: "
             f"max_abs_err={err:.3e} ({check}); against f64 over {k} "
             f"windows: kernel {e_kern:.3e}, plain {e_plain:.3e} (limit "
             f"{K3_ORACLE_RATIO:g}x plain); kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
             f"({bound_by}), plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms "
-            f"({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s){old}")
         if not ok:
             raise AssertionError(f"conv3x3_same differs from its plain "
                                  f"version at {case}: {check}, {err}")
@@ -628,19 +675,29 @@ def phase_conv3x3(smi: str) -> tuple:
             raise AssertionError(f"conv3x3_same's error against f64 at "
                                  f"{case} is {e_kern}, plain {e_plain}")
         report["max_abs_err"] = max(report["max_abs_err"], err)
-        if n == SFT_WINDOWS and dtype == torch.bfloat16:
+        if sft:
+            if not old_ulps <= 1.0:
+                raise AssertionError(f"the mma.sync kernel differs from "
+                                     f"the plain version at {case} by "
+                                     f"{old_ulps} ulp")
+            if not ms < old_ms:
+                raise AssertionError(f"the wgmma kernel ({ms} ms) is not "
+                                     f"faster than mma.sync ({old_ms} ms) "
+                                     f"at {case}")
             uses = K3_PATH_CI.count(ci)         # once per scale
-            for key, t in (("kernel", ms), ("bound", bound_ms),
-                           ("cuDNN", lib_ms)):
+            for key, t in (("wgmma", ms), ("mma.sync", old_ms),
+                           ("bound", bound_ms), ("cuDNN", lib_ms)):
                 path[key] += uses * t
         if case == K3_REPORTED:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=lib_ms)
+                          bound_by=bound_by, library_ms=lib_ms,
+                          mma_sync_ms=old_ms)
         del x, wt, got, want, x_nchw, w_oihw
     torch.cuda.empty_cache()
     say(f"[conv3x3] the {2 * len(K3_PATH_CI)} SFT window convs of one "
         f"serving batch, from the times above: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in path.items()) + f"; on {smi}")
+    report["launches_by_path"] = by_path
     return report, launches
 
 

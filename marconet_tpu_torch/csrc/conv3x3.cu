@@ -41,9 +41,10 @@
 //   are summed apart before joining the running sum, which keeps the
 //   rounding error near that of the plain version's per-tap matmuls.
 //
-// This is the simple form. The tensor cores' full rate on Hopper needs
-// wgmma fed by TMA through a multi-stage shared-memory ring, which is left
-// to later work; PERF.md keeps this kernel's time beside its bound.
+// This is the general form, for any shape, alignment and either dtype.
+// bf16 inputs that TMA can tile (ops/conv3x3.py::conv3x3_path), the SFT
+// convs among them, take conv3x3_wgmma.cu instead: wgmma fed by TMA through
+// a multi-stage shared-memory ring. PERF.md keeps both kernels' times.
 #include <mma.h>
 
 #include "common.cuh"

@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
     lib.marconet_sft_writeback_bwd.restype = i
     lib.marconet_conv3x3_same.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.marconet_conv3x3_same.restype = i
+    lib.marconet_conv3x3_wgmma.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.marconet_conv3x3_wgmma.restype = i
     return lib
 
 

@@ -13,11 +13,21 @@ rounded once. K3 is forward-only, as the JAX kernel is (it has no
 ``custom_vjp``): the result carries no autograd graph.
 
 On CPU tensors :func:`conv3x3_same` runs :func:`conv3x3_same_plain`; on
-CUDA tensors it launches K3 (``csrc/conv3x3.cu``, counted in
-``conv3x3_same.launches``) or raises. The TPU kernel's 256 / 128 channel
-blocks were a VMEM tiling rule, not part of the function: both versions
-take any CI and CO. K3 is bound by operations; the source says what its
-design does about that.
+CUDA tensors it launches one of K3's two kernels or raises. Which one is a
+rule on the inputs, :func:`conv3x3_path`, not a fallback:
+
+- ``"wgmma"`` (``csrc/conv3x3_wgmma.cu``): TMA loads feeding Hopper's
+  ``wgmma`` through an mbarrier ring, for bf16 inputs that TMA can tile
+  (the SFT window convs);
+- ``"mma_sync"`` (``csrc/conv3x3.cu``): the general kernel, ``mma.sync``
+  tensor cores in bf16 and register-tiled FMA in f32, for every other
+  shape and for f32.
+
+A launch on either path adds one to ``conv3x3_same.launches`` and to
+``conv3x3_same.launches_by_path[path]``. The TPU kernel's 256 / 128
+channel blocks were a VMEM tiling rule, not part of the function: both
+versions take any CI and CO. K3 is bound by operations; the sources say
+what their designs do about that.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 from marconet_tpu_torch import native
 
 CI_BLOCK = 256   # the TPU kernel's input-channel block (_KBLK)
+WGMMA_TILE_PIXELS = 128   # pixels of the wgmma kernel's M tile
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -72,6 +83,63 @@ def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def conv3x3_path(shape_x, shape_w, dtype, aligned: bool) -> str:
+    """Which CUDA kernel K3 runs for x of ``shape_x`` (N, H, W, CI) and w
+    of ``shape_w`` (3, 3, CI, CO) in ``dtype``.
+
+    ``"wgmma"`` when TMA can tile the inputs: bf16; CI and CO multiples of
+    8 (16-byte strides; a CI tail past 64 is zero-filled by TMA); W
+    dividing 128 and H a multiple of 128 / W (an M tile of 128 pixels is
+    whole rows of one image); ``aligned``, i.e. 16-byte-aligned pointers.
+    ``"mma_sync"`` for every other input.
+    """
+    _, h, w, ci = shape_x
+    co = shape_w[3]
+    whole_rows = (0 < w and WGMMA_TILE_PIXELS % w == 0
+                  and h % (WGMMA_TILE_PIXELS // w) == 0)
+    if (dtype == torch.bfloat16 and aligned and ci % 8 == 0 and co % 8 == 0
+            and whole_rows):
+        return "wgmma"
+    return "mma_sync"
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, path: str) -> torch.Tensor:
+    """Launch the kernel of ``path`` on checked CUDA inputs and count it."""
+    n, h, wd, ci = x.shape
+    co = w.shape[3]
+    out = torch.empty(n, h, wd, co, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = native.library()
+    if path == "wgmma":
+        # the weights K-major, (CO, 3, 3, CI): rows of the B tiles
+        wk = w.permute(3, 0, 1, 2).contiguous()
+        code = lib.marconet_conv3x3_wgmma(
+            x.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, wd, ci, co,
+            stream)
+    else:
+        code = lib.marconet_conv3x3_same(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci, co,
+            native.DTYPE_CODES[x.dtype], stream)
+    native.check(code, f"conv3x3_same ({path})")
+    conv3x3_same.launches += 1
+    conv3x3_same.launches_by_path[path] += 1
+    return out
+
+
+def _check_cuda(x: torch.Tensor, w: torch.Tensor) -> None:
+    _check(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_same: unsupported device {x.device}")
+    if x.dtype not in native.DTYPE_CODES:
+        raise ValueError(f"conv3x3_same: unsupported dtype {x.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("conv3x3_same: x (NHWC) and w (HWIO) must be "
+                         "contiguous")
+    native.require_hopper(x.device)
+
+
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 zero-SAME convolution, NHWC / HWIO, stride 1, no bias.
 
@@ -81,33 +149,27 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Returns:
       a new (N, H, W, CO) tensor in ``x``'s dtype, without autograd (K3 is
       forward-only). CPU tensors take :func:`conv3x3_same_plain`; CUDA
-      tensors launch K3 (counted in ``conv3x3_same.launches``) and raise on
-      any other dtype, a non-contiguous input or a card other than Hopper.
+      tensors launch the kernel :func:`conv3x3_path` picks (counted in
+      ``conv3x3_same.launches`` and ``launches_by_path``) and raise on any
+      other dtype, a non-contiguous input or a card other than Hopper.
     """
     _check(x, w)
     if x.device.type == "cpu":
         with torch.no_grad():
             return conv3x3_same_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_same: unsupported device {x.device}")
-    code = native.DTYPE_CODES.get(x.dtype)
-    if code is None:
-        raise ValueError(f"conv3x3_same: unsupported dtype {x.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv3x3_same: x (NHWC) and w (HWIO) must be "
-                         "contiguous")
-    native.require_hopper(x.device)
-    n, h, wd, ci = x.shape
-    co = w.shape[3]
-    out = torch.empty(n, h, wd, co, dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    native.check(native.library().marconet_conv3x3_same(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci, co, code,
-        stream), "conv3x3_same")
-    conv3x3_same.launches += 1
-    return out
+    _check_cuda(x, w)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return _launch(x, w, conv3x3_path(tuple(x.shape), tuple(w.shape),
+                                      x.dtype, aligned))
+
+
+def _conv3x3_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The general kernel on any CUDA input, whatever the rule picks: the
+    design ``"wgmma"`` replaced for the SFT shapes, kept for comparing the
+    two on the same inputs."""
+    _check_cuda(x, w)
+    return _launch(x, w, "mma_sync")
 
 
 conv3x3_same.launches = 0
+conv3x3_same.launches_by_path = {"wgmma": 0, "mma_sync": 0}

@@ -14,7 +14,11 @@ import pytest
 import torch
 
 from marconet_tpu.ops.pallas_conv import conv3x3_same as jax_conv3x3_same
-from marconet_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
+from marconet_tpu_torch.ops.conv3x3 import (
+    conv3x3_path,
+    conv3x3_same,
+    conv3x3_same_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -113,3 +117,44 @@ def test_rejects_bad_arguments(bad):
         k = k.double()
     with pytest.raises(ValueError):
         conv3x3_same(x, k)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+SFT_SHAPES = [(128, 64, 64, 512, 256), (128, 64, 64, 256, 256),
+              (128, 32, 32, 512, 256), (128, 32, 32, 256, 256)]
+RAGGED_SHAPES = [(1, 1, 1, 5, 3), (3, 7, 13, 40, 24), (2, 9, 64, 300, 130),
+                 (1, 17, 5, 8, 136), (2, 8, 8, 256, 128), (2, 9, 5, 300, 130),
+                 (2, 2, 3, 7, 1), (1, 4, 5, 6, 7)]
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,want", [
+    # the SFT window convs of a serving batch
+    *[(s, BF16, True, "wgmma") for s in SFT_SHAPES],
+    # the shapes the CPU and card tests use for the general kernel
+    *[(s, BF16, True, "mma_sync") for s in RAGGED_SHAPES],
+    # f32 and a misaligned pointer keep the general kernel
+    (SFT_SHAPES[0], F32, True, "mma_sync"),
+    (SFT_SHAPES[3], F32, True, "mma_sync"),
+    (SFT_SHAPES[0], BF16, False, "mma_sync"),
+    # boundaries of the rule: W dividing 128, H a multiple of 128 / W,
+    # CI and CO multiples of 8
+    ((2, 8, 16, 64, 64), BF16, True, "wgmma"),       # W = 16, 8 rows a tile
+    ((3, 1, 128, 64, 64), BF16, True, "wgmma"),      # W = 128, one row
+    ((1, 128, 1, 8, 8), BF16, True, "wgmma"),        # W = 1, 128 rows
+    ((2, 6, 32, 64, 64), BF16, True, "mma_sync"),    # H = 6, not 4k
+    ((1, 12, 16, 64, 64), BF16, True, "mma_sync"),   # H = 12, not 8k
+    ((1, 4, 256, 64, 64), BF16, True, "mma_sync"),   # W = 256 > 128
+    ((1, 8, 48, 64, 64), BF16, True, "mma_sync"),    # 128 % 48 != 0
+    ((1, 4, 32, 64, 256), BF16, True, "wgmma"),      # CI = 64
+    ((1, 4, 32, 72, 256), BF16, True, "wgmma"),      # CI tail zero-filled
+    ((1, 4, 32, 60, 256), BF16, True, "mma_sync"),   # CI % 8 != 0
+    ((1, 4, 32, 256, 8), BF16, True, "wgmma"),       # CO = 8
+    ((1, 4, 32, 256, 136), BF16, True, "wgmma"),     # partial CO tile
+    ((1, 4, 32, 256, 12), BF16, True, "mma_sync"),   # CO % 8 != 0
+    ((1, 4, 0, 64, 64), BF16, True, "mma_sync"),     # empty
+])
+def test_conv3x3_path_rule(shape, dtype, aligned, want):
+    """The rule that picks K3's CUDA kernel: TMA + wgmma for bf16 inputs
+    that TMA can tile, the general mma.sync kernel for every other."""
+    n, h, w, ci, co = shape
+    assert conv3x3_path((n, h, w, ci), (3, 3, ci, co), dtype, aligned) == want

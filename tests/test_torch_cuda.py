@@ -11,7 +11,9 @@ Every kernel does its math in f32 and rounds once, like its plain
 version. K1, K1b and K2 sum nothing, so their comparisons are exact; K3
 (``conv3x3_same``) sums 9 * CI products in another order than its plain
 version, so it is held within one bf16 ulp in bf16 and within 1e-5 of the
-largest value in f32 (the limits of ``chip_smoke.py``). The backward
+largest value in f32 (the limits of ``chip_smoke.py``), on each of its two
+kernels: the TMA + wgmma one where ``conv3x3_path`` picks it and the
+general mma.sync one elsewhere. The backward
 kernels (K1b and the write-back's) are also driven through autograd, to
 show that gradients reach the inputs through both kernels.
 """
@@ -20,7 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from marconet_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
+from marconet_tpu_torch.ops.conv3x3 import (
+    _conv3x3_mma_sync,
+    conv3x3_path,
+    conv3x3_same,
+    conv3x3_same_plain,
+)
 from marconet_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_bwd,
@@ -49,9 +56,12 @@ def dev():
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+# (rows, C) or NCHW channels_last; C = 33, 7, 5, 17 and 1 take K1's
+# one-element path, C = 512 (the style MLP) and 8 its 16-byte path
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1), (3, 7), (1000, 33),
-                                   (2, 5, 3, 3), (4, 13, 9, 17)])
+                                   (2, 5, 3, 3), (4, 13, 9, 17),
+                                   (128, 512), (3, 8, 11, 7)])
 def test_fused_leaky_relu_matches_plain(dev, dtype, shape):
     g = torch.Generator(device=dev).manual_seed(0)
     if len(shape) == 2:
@@ -67,6 +77,24 @@ def test_fused_leaky_relu_matches_plain(dev, dtype, shape):
     torch.cuda.synchronize()
     assert fused_leaky_relu.launches == before + 1
     assert got.stride() == x.stride()
+    torch.testing.assert_close(got, fused_leaky_relu_plain(x, bias),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_leaky_relu_misaligned_view(dev, dtype):
+    """A 2-D view one element past an aligned address: C = 64 would take
+    K1's 16-byte path, the pointer sends it to the one-element path;
+    bit-exact."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    buf = torch.randn(257 * 64 + 1, device=dev, generator=g).to(dtype)
+    x = buf[1:].view(257, 64)
+    assert x.data_ptr() % 16 != 0
+    bias = torch.randn(x.shape[1], device=dev, generator=g)
+    before = fused_leaky_relu.launches
+    got = fused_leaky_relu(x, bias)
+    torch.cuda.synchronize()
+    assert fused_leaky_relu.launches == before + 1
     torch.testing.assert_close(got, fused_leaky_relu_plain(x, bias),
                                rtol=0, atol=0)
 
@@ -248,6 +276,18 @@ def _k3_inputs(dev, dtype, shape):
     return x, k.to(dtype)
 
 
+def _assert_k3_close(got, x, k):
+    want = conv3x3_same_plain(x, k).float()
+    d = (got.float() - want).abs()
+    if x.dtype == torch.bfloat16:
+        # one ulp of max(|plain|, rms(plain) / 16), as chip_smoke.py
+        floor = float(want.square().mean().sqrt()) / 16
+        _, e = torch.frexp(want.abs().clamp_min(floor))
+        assert bool((d <= torch.ldexp(torch.ones_like(d), e - 8)).all())
+    else:
+        assert float(d.max()) <= 1e-5 * float(want.abs().max())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", K3_SHAPES)
 def test_conv3x3_matches_plain(dev, dtype, shape):
@@ -257,15 +297,57 @@ def test_conv3x3_matches_plain(dev, dtype, shape):
     torch.cuda.synchronize()
     assert conv3x3_same.launches == before + 1
     assert got.shape == shape[:3] + (shape[4],) and got.dtype == dtype
-    want = conv3x3_same_plain(x, k).float()
-    d = (got.float() - want).abs()
-    if dtype == torch.bfloat16:
-        # one ulp of max(|plain|, rms(plain) / 16), as chip_smoke.py
-        floor = float(want.square().mean().sqrt()) / 16
-        _, e = torch.frexp(want.abs().clamp_min(floor))
-        assert bool((d <= torch.ldexp(torch.ones_like(d), e - 8)).all())
-    else:
-        assert float(d.max()) <= 1e-5 * float(want.abs().max())
+    _assert_k3_close(got, x, k)
+
+
+# (N, H, W, CI, CO) that the rule sends to the TMA + wgmma kernel: one K
+# block, two tile rows of 64, a partial CO tile, one window of the SFT
+# stack, a CI tail past 64 with two CO tiles, whole 128-pixel rows, and odd
+# numbers of 128-pixel tiles (the last cluster's second CTA stores nothing)
+WGMMA_SHAPES = [(2, 32, 32, 64, 64), (1, 64, 64, 128, 256),
+                (3, 16, 16, 256, 136), (1, 32, 32, 256, 256),
+                (1, 16, 16, 72, 264), (2, 1, 128, 64, 64),
+                (3, 1, 128, 64, 64), (3, 8, 16, 64, 520)]
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_conv3x3_wgmma_matches_plain(dev, shape):
+    x, k = _k3_inputs(dev, torch.bfloat16, shape)
+    assert conv3x3_path(tuple(x.shape), tuple(k.shape), x.dtype,
+                        True) == "wgmma"
+    before = dict(conv3x3_same.launches_by_path)
+    got = conv3x3_same(x, k)
+    torch.cuda.synchronize()
+    assert conv3x3_same.launches_by_path == {
+        "wgmma": before["wgmma"] + 1, "mma_sync": before["mma_sync"]}
+    assert got.shape == shape[:3] + (shape[4],)
+    _assert_k3_close(got, x, k)
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES[:2])
+def test_conv3x3_general_kernel_on_wgmma_shapes(dev, shape):
+    """The general kernel, called past the rule, agrees on the shapes the
+    rule gives to wgmma: the two designs compute one function."""
+    x, k = _k3_inputs(dev, torch.bfloat16, shape)
+    before = dict(conv3x3_same.launches_by_path)
+    got = _conv3x3_mma_sync(x, k)
+    torch.cuda.synchronize()
+    assert conv3x3_same.launches_by_path == {
+        "wgmma": before["wgmma"], "mma_sync": before["mma_sync"] + 1}
+    _assert_k3_close(got, x, k)
+
+
+def test_conv3x3_misaligned_input_takes_general_kernel(dev):
+    x, k = _k3_inputs(dev, torch.bfloat16, (1, 32, 32, 64, 64))
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    x1 = buf[1:].view(x.shape)
+    x1.copy_(x)
+    before = dict(conv3x3_same.launches_by_path)
+    got = conv3x3_same(x1, k)
+    torch.cuda.synchronize()
+    assert conv3x3_same.launches_by_path["mma_sync"] == \
+        before["mma_sync"] + 1
+    _assert_k3_close(got, x1, k)
 
 
 @pytest.mark.parametrize("bad", ["float16", "x strided", "w strided"])
