@@ -18,14 +18,15 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    times of both, and each kernel's bound (the larger of its bytes over
    the card's memory rate and its operations over the f32 peak); K1's
    achieved GB/s beside the memory rate.
-4. conv3x3: K3 (the 3x3 implicit-GEMM conv) on its path, the SFT window
-   convs of one serving batch (12 launches, counted, all on the TMA +
-   wgmma kernel); then against its plain version at the four SFT window
-   shapes in bf16 (within one bf16 ulp), the largest in f32 (within 1e-5
-   of the largest value) and two ragged shapes, both against f64
-   ``F.conv2d``; kernel, bound, plain and cuDNN times. At the four SFT
-   shapes the general mma.sync kernel runs on the same inputs too, held to
-   the same ulp and timed beside the wgmma one, which must be faster.
+4. conv3x3: K3 (the 3x3 implicit-GEMM conv) on its paths, the SFT window
+   convs of one serving batch in bf16 (12 launches, counted, all on the
+   TMA + wgmma kernel) and in f32 (12 launches, all on the FMA kernel);
+   then against its plain version at the four SFT window shapes in bf16
+   (within one bf16 ulp) and in f32 (within 1e-5 of the largest value)
+   and two ragged shapes in each, all against f64 ``F.conv2d``; kernel,
+   bound, plain and cuDNN times. At the four bf16 SFT shapes the general
+   mma.sync kernel runs on the same inputs too, held to the same ulp and
+   timed beside the wgmma one, which must be faster.
 5. parity: full-width f32 ``restore`` (B=1, 4 slots, 3 valid) on the card
    (kernels, TF32 off) against the CPU (plain versions), same seeded
    weights, within the tolerances of
@@ -141,6 +142,7 @@ KERNELS = {
     "conv3x3_same": dict(
         route="cuda", source="marconet_tpu_torch/csrc/conv3x3_wgmma.cu",
         general_source="marconet_tpu_torch/csrc/conv3x3.cu",
+        f32_source="marconet_tpu_torch/csrc/conv3x3_f32.cu",
         replaces="marconet_tpu/ops/pallas_conv.py:39"),
 }
 # launches per training step: 19 StyledConv / style-MLP activations in the
@@ -514,20 +516,22 @@ def phase_serve(smi: str) -> dict:
 
 SFT_WINDOWS = SERVE_BATCH * SERVE_SLOTS   # 128 windows per serving batch
 # (N, H, W, CI, CO, dtype) of K3's checks: the four SFT window conv shapes
-# of the serving batch in bf16 (the fuse block's 512 -> 256 conv; 256 ->
-# 256 for its second conv and the scale / shift stacks; at the 64- and
-# 32-high scales), the largest 256 -> 256 one in f32, and two ragged
-# shapes in each dtype
-K3_CASES = [(SFT_WINDOWS, 64, 64, 512, 256, torch.bfloat16),
-            (SFT_WINDOWS, 64, 64, 256, 256, torch.bfloat16),
-            (SFT_WINDOWS, 32, 32, 512, 256, torch.bfloat16),
-            (SFT_WINDOWS, 32, 32, 256, 256, torch.bfloat16),
-            (SFT_WINDOWS, 64, 64, 256, 256, torch.float32),
+# of the serving batch (the fuse block's 512 -> 256 conv; 256 -> 256 for
+# its second conv and the scale / shift stacks; at the 64- and 32-high
+# scales) in bf16 and in f32, and two ragged shapes in each dtype
+K3_SFT_SHAPES = [(SFT_WINDOWS, 64, 64, 512, 256),
+                 (SFT_WINDOWS, 64, 64, 256, 256),
+                 (SFT_WINDOWS, 32, 32, 512, 256),
+                 (SFT_WINDOWS, 32, 32, 256, 256)]
+K3_CASES = [*[(*sh, torch.bfloat16) for sh in K3_SFT_SHAPES],
+            *[(*sh, torch.float32) for sh in K3_SFT_SHAPES],
             (3, 7, 13, 40, 24, torch.bfloat16),
             (2, 9, 64, 300, 130, torch.bfloat16),
             (3, 7, 13, 40, 24, torch.float32),
             (2, 9, 64, 300, 130, torch.float32)]
 K3_REPORTED = K3_CASES[0]
+# the f32 case whose numbers the kernels line carries beside the bf16 ones
+K3_REPORTED_F32 = (SFT_WINDOWS, 64, 64, 256, 256, torch.float32)
 # per scale: the fuse block's 512 -> 256 conv, its 256 -> 256 conv and two
 # 256 -> 256 convs in each of the scale and shift stacks
 K3_PATH_CI = (512, 256, 256, 256, 256, 256)
@@ -566,48 +570,73 @@ def _k3_old_design(x, wt, want, iters: int) -> tuple:
     return ulps, cuda_ms(lambda: _conv3x3_mma_sync(x, wt), iters=iters)
 
 
-def phase_conv3x3(smi: str) -> tuple:
-    """K3 on its path, then against its plain version.
+def _k3_path(dtype, tgen) -> tuple:
+    """The SFT window convs of one serving batch (128 windows) at both
+    scales, chained as the SR net's stacks would run them, through
+    ``conv3x3_same`` in ``dtype``: (launches, launches by path), counted
+    from 0 just before and read just after."""
+    dev = tgen.device
+    _reset_counts()
+    for hw in (32, 64):
+        x = torch.randn(SFT_WINDOWS, hw, hw, 512, device=dev,
+                        generator=tgen).to(dtype)
+        for ci in K3_PATH_CI:
+            x = conv3x3_same(x, _k3_weight(ci, 256, dtype, tgen))
+        if tuple(x.shape) != (SFT_WINDOWS, hw, hw, 256) or \
+                not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"K3 {dtype} path at {hw}x{hw}: shape "
+                                 f"{tuple(x.shape)} or non-finite values")
+    torch.cuda.synchronize()
+    return _counts(), dict(conv3x3_same.launches_by_path)
 
-    The path: the SFT window convs of one serving batch (128 windows) at
+
+def phase_conv3x3(smi: str) -> tuple:
+    """K3 on its paths, then against its plain version.
+
+    The paths: the SFT window convs of one serving batch (128 windows) at
     both scales, chained as the SR net's stacks would run them, through
-    ``conv3x3_same`` (12 launches, counted, every one on the wgmma kernel).
+    ``conv3x3_same``: in bf16 (12 launches, counted, every one on the
+    wgmma kernel) and in f32 (12 launches, every one on the FMA kernel).
     Then each of ``K3_CASES``: kernel against plain (bf16 within one ulp,
     f32 within 1e-5 of the largest value), both against an f64
     ``F.conv2d`` on the first windows (the kernel's error at most twice the
     plain version's), and CUDA-event times of the kernel, the plain version
     and cuDNN's ``F.conv2d`` on the same data (TF32 off), beside the bound.
-    At the four SFT shapes the general mma.sync kernel (the design the
+    At the four bf16 SFT shapes the general mma.sync kernel (the design the
     wgmma kernel replaced there) runs on the same inputs, within the same
     ulp, timed in turns with the wgmma kernel, which must be the faster.
     """
     dev = torch.device("cuda", 0)
     tgen = torch.Generator(device=dev).manual_seed(5)
-    _reset_counts()
-    for hw in (32, 64):
-        x = torch.randn(SFT_WINDOWS, hw, hw, 512, device=dev,
-                        generator=tgen).to(torch.bfloat16)
-        for ci in K3_PATH_CI:
-            x = conv3x3_same(x, _k3_weight(ci, 256, torch.bfloat16, tgen))
-        if tuple(x.shape) != (SFT_WINDOWS, hw, hw, 256) or \
-                not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"K3 path at {hw}x{hw}: shape "
-                                 f"{tuple(x.shape)} or non-finite values")
-    torch.cuda.synchronize()
-    launches = _counts()
-    by_path = dict(conv3x3_same.launches_by_path)
-    _check_counts("conv3x3", launches, {
-        k: 2 * len(K3_PATH_CI) if k == "conv3x3_same" else 0
-        for k in _WRAPPERS}, "the SFT window convs of one serving batch")
-    say(f"[conv3x3] K3 launches by path over those convs: {by_path}")
-    if by_path != {"wgmma": 2 * len(K3_PATH_CI), "mma_sync": 0}:
-        raise AssertionError(f"the SFT window convs did not all take the "
-                             f"wgmma kernel: {by_path}")
-    del x
+    n_path = 2 * len(K3_PATH_CI)
+    launches = dict.fromkeys(_WRAPPERS, 0)
+    by_path = dict.fromkeys(conv3x3_same.launches_by_path, 0)
+    # the f32 path draws from a generator of its own: the bf16 path and the
+    # cases below keep their inputs whatever it draws
+    for dtype, route, gen in (
+            (torch.bfloat16, "wgmma", tgen),
+            (torch.float32, "fma",
+             torch.Generator(device=dev).manual_seed(6))):
+        counts, paths = _k3_path(dtype, gen)
+        dn = str(dtype).removeprefix("torch.")
+        _check_counts("conv3x3", counts, {
+            k: n_path if k == "conv3x3_same" else 0 for k in _WRAPPERS},
+            f"the SFT window convs of one serving batch in {dn}")
+        say(f"[conv3x3] K3 launches by path over those convs in {dn}: "
+            f"{paths}")
+        want = {p: n_path if p == route else 0 for p in paths}
+        if paths != want:
+            raise AssertionError(f"the {dn} SFT window convs did not all "
+                                 f"take the {route} kernel: {paths}")
+        for k in launches:
+            launches[k] += counts[k]
+        for p in by_path:
+            by_path[p] += paths[p]
 
     report = {"max_abs_err": 0.0}
-    # ms of the path's 12 convs
+    # ms of each path's 12 convs
     path = {"wgmma": 0.0, "mma.sync": 0.0, "bound": 0.0, "cuDNN": 0.0}
+    path_f32 = {"fma": 0.0, "bound": 0.0, "cuDNN": 0.0}
     for case in K3_CASES:
         n, h, w, ci, co, dtype = case
         dn = str(dtype).removeprefix("torch.")
@@ -619,6 +648,8 @@ def phase_conv3x3(smi: str) -> tuple:
         sft = n == SFT_WINDOWS and dtype == torch.bfloat16
         if sft and route != "wgmma":
             raise AssertionError(f"{case} takes {route}, not wgmma")
+        if dtype == torch.float32 and route != "fma":
+            raise AssertionError(f"{case} takes {route}, not fma")
         got = conv3x3_same(x, wt)
         want = conv3x3_same_plain(x, wt)
         err = max_abs(got, want)
@@ -665,8 +696,9 @@ def phase_conv3x3(smi: str) -> tuple:
             f"max_abs_err={err:.3e} ({check}); against f64 over {k} "
             f"windows: kernel {e_kern:.3e}, plain {e_plain:.3e} (limit "
             f"{K3_ORACLE_RATIO:g}x plain); kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-            f"({bound_by}), plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% "
+            f"of the bound), bound {bound_ms:.4f} ms ({bound_by}), plain "
+            f"{plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms "
             f"({flops / lib_ms / 1e9:.1f} TFLOP/s){old}")
         if not ok:
             raise AssertionError(f"conv3x3_same differs from its plain "
@@ -688,15 +720,24 @@ def phase_conv3x3(smi: str) -> tuple:
             for key, t in (("wgmma", ms), ("mma.sync", old_ms),
                            ("bound", bound_ms), ("cuDNN", lib_ms)):
                 path[key] += uses * t
+        elif n == SFT_WINDOWS:      # f32
+            uses = K3_PATH_CI.count(ci)
+            for key, t in (("fma", ms), ("bound", bound_ms),
+                           ("cuDNN", lib_ms)):
+                path_f32[key] += uses * t
         if case == K3_REPORTED:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib_ms,
                           mma_sync_ms=old_ms)
+        if case == K3_REPORTED_F32:
+            report.update(f32_ms=ms, f32_plain_ms=plain_ms,
+                          f32_bound_ms=bound_ms, f32_library_ms=lib_ms)
         del x, wt, got, want, x_nchw, w_oihw
     torch.cuda.empty_cache()
-    say(f"[conv3x3] the {2 * len(K3_PATH_CI)} SFT window convs of one "
-        f"serving batch, from the times above: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in path.items()) + f"; on {smi}")
+    for dn, times in (("bf16", path), ("f32", path_f32)):
+        say(f"[conv3x3] the {n_path} {dn} SFT window convs of one serving "
+            f"batch, from the times above: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in times.items()) + f"; on {smi}")
     report["launches_by_path"] = by_path
     return report, launches
 

@@ -9,8 +9,9 @@
 //       x[n, y+dy-1, x+dx-1, ci] * w[dy, dx, ci, co]     (0 outside the image)
 //
 // x (N, H, W, CI) NHWC, w (3, 3, CI, CO) HWIO, out (N, H, W, CO), all
-// contiguous and of one dtype; the sum is taken in f32 and rounded once to
-// the output dtype. Any N, H, W, CI and CO (edges are masked).
+// contiguous bf16; the sum is taken in f32 and rounded once to bf16. Any N,
+// H, W, CI and CO (edges are masked). f32 inputs take conv3x3_f32.cu; a
+// call here with the f32 dtype code returns cudaErrorInvalidValue.
 //
 // The GEMM: M = N*H*W output pixels, N = CO, K = 9*CI, with A[m, k] the input
 // pixel under tap k / CI of output pixel m (zero where the tap leaves the
@@ -24,27 +25,20 @@
 // windows of 64x64, 512 -> 256 channels) the GEMM does 2*M*K*CO = 1.237
 // TFLOP while the inputs and output move ~0.8 GB, about 1500 flop/byte, far
 // above the H100's ~295 flop/byte ridge. So the least time is 1.25 ms at the
-// 989 TFLOP/s bf16 tensor-core peak and 18.5 ms at the 67 TFLOP/s f32 peak
-// outside the tensor cores. What the design does about it:
+// 989 TFLOP/s bf16 tensor-core peak. What the design does about it: the
+// products run on the tensor cores through mma.sync (nvcuda::wmma 16x16x16,
+// f32 accumulate). A 256-thread block owns a 128-pixel x 128-channel
+// output tile; each of its 8 warps owns 32 x 64 of it (8 accumulator
+// fragments), and every A and B fragment loaded from shared memory feeds
+// 4 and 2 products. K advances 32 channels of one tap at a time; the next
+// K tile's global loads are issued into registers before the current
+// tile's products, and two shared buffers alternate, so one barrier per K
+// tile suffices. Loads are 16 bytes wide when CI and CO are multiples of 8.
 //
-// * bf16 runs on the tensor cores through mma.sync (nvcuda::wmma 16x16x16,
-//   f32 accumulate). A 256-thread block owns a 128-pixel x 128-channel
-//   output tile; each of its 8 warps owns 32 x 64 of it (8 accumulator
-//   fragments), and every A and B fragment loaded from shared memory feeds
-//   4 and 2 products. K advances 32 channels of one tap at a time; the next
-//   K tile's global loads are issued into registers before the current
-//   tile's products, and two shared buffers alternate, so one barrier per K
-//   tile suffices. Loads are 16 bytes wide when CI and CO are multiples of 8.
-// * f32 stays f32 (no TF32: the port's f32 parity gates assume full f32
-//   products): a 64 x 64 tile per 256-thread block, each thread 4 x 4 sums
-//   with fmaf from float4 reads of shared memory. Each K tile's 16 products
-//   are summed apart before joining the running sum, which keeps the
-//   rounding error near that of the plain version's per-tap matmuls.
-//
-// This is the general form, for any shape, alignment and either dtype.
-// bf16 inputs that TMA can tile (ops/conv3x3.py::conv3x3_path), the SFT
-// convs among them, take conv3x3_wgmma.cu instead: wgmma fed by TMA through
-// a multi-stage shared-memory ring. PERF.md keeps both kernels' times.
+// This is the general form, for any shape and alignment. bf16 inputs that
+// TMA can tile (ops/conv3x3.py::conv3x3_path), the SFT convs among them,
+// take conv3x3_wgmma.cu instead: wgmma fed by TMA through a multi-stage
+// shared-memory ring. PERF.md keeps both kernels' times.
 #include <mma.h>
 
 #include "common.cuh"
@@ -85,10 +79,6 @@ __device__ __forceinline__ int64_t tap_offset(const ConvShape& s,
   if (!p.valid || iy < 0 || iy >= s.H || ix < 0 || ix >= s.W) return -1;
   return p.base + ((int64_t)(dy - 1) * s.W + (dx - 1)) * s.CI;
 }
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kTcThreads = 256;
@@ -234,100 +224,6 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// f32: register-tiled FMA, no TF32
-// ---------------------------------------------------------------------------
-
-constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
-constexpr int kFThreads = 256;
-constexpr int kFStride = kFBM + 4;  // floats per shared row (272 bytes)
-
-__global__ void __launch_bounds__(kFThreads)
-    conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       float* __restrict__ out, ConvShape s, int n_tiles) {
-  __shared__ __align__(16) float As[2][kFBK][kFStride];  // [k][pixel]
-  __shared__ __align__(16) float Bs[2][kFBK][kFStride];  // [k][channel]
-
-  const int tid = threadIdx.x;
-  const int co0 = (int)(blockIdx.x % n_tiles) * kFBN;
-  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kFBM;
-
-  const int a_row = tid / 4, a_k = (tid % 4) * 4;
-  const PixelRef a_pix = pixel_ref(s, m0 + a_row);
-  const int b_k = tid / 16, b_n = (tid % 16) * 4;
-
-  const int nkc = (s.CI + kFBK - 1) / kFBK;
-  const int k_tiles = 9 * nkc;
-  float a_reg[4], b_reg[4];
-
-  auto load_tile = [&](int kt) {
-    const int tap = kt / nkc;
-    const int ci0 = (kt - tap * nkc) * kFBK;
-    const int64_t off = tap_offset(s, a_pix, tap / 3, tap % 3);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ci = ci0 + a_k + q;
-      a_reg[q] = (off >= 0 && ci < s.CI) ? __ldg(x + off + ci) : 0.f;
-    }
-    const int cib = ci0 + b_k;
-    const int64_t row = ((int64_t)tap * s.CI + cib) * s.CO;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int co = co0 + b_n + q;
-      b_reg[q] = (cib < s.CI && co < s.CO) ? __ldg(w + row + co) : 0.f;
-    }
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) As[buf][a_k + q][a_row] = a_reg[q];
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) =
-        make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
-  };
-
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < k_tiles) load_tile(kt + 1);
-    // the tile's 16 products are summed apart, then added to the running
-    // sums: a two-level sum whose rounding error grows with K / 16 + 16
-    // rather than K
-    float part[4][4] = {};
-#pragma unroll
-    for (int k = 0; k < kFBK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-    if (kt + 1 < k_tiles) store_tile(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t m = m0 + ty * 4 + i;
-    if (m >= s.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < s.CO) out[m * s.CO + co] = acc[i][j];
-    }
-  }
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -342,37 +238,22 @@ extern "C" int marconet_conv3x3_same(const void* x, const void* w, void* out,
   using namespace marconet;
   if (N <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0)
     return (int)cudaErrorInvalidValue;
-  ConvShape s{N, H, W, CI, CO, (int64_t)N * H * W};
+  if (dtype != kBFloat16) return (int)cudaErrorInvalidValue;
+  const ConvShape s{N, H, W, CI, CO, (int64_t)N * H * W};
+  const int n_tiles = (CO + kBN - 1) / kBN;
+  const int64_t blocks = ((s.M + kBM - 1) / kBM) * n_tiles;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32: {
-      const int n_tiles = (CO + kFBN - 1) / kFBN;
-      const int64_t blocks = ((s.M + kFBM - 1) / kFBM) * n_tiles;
-      if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-      conv3x3_f32_kernel<<<(unsigned)blocks, kFThreads, 0, st>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<float*>(out), s, n_tiles);
-      break;
-    }
-    case kBFloat16: {
-      const int n_tiles = (CO + kBN - 1) / kBN;
-      const int64_t blocks = ((s.M + kBM - 1) / kBM) * n_tiles;
-      if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-      const auto* xb = static_cast<const __nv_bfloat16*>(x);
-      const auto* wb = static_cast<const __nv_bfloat16*>(w);
-      auto* ob = static_cast<__nv_bfloat16*>(out);
-      const bool vec = CI % 8 == 0 && CO % 8 == 0 && aligned16(x) &&
-                       aligned16(w) && aligned16(out);
-      if (vec)
-        conv3x3_bf16_kernel<true>
-            <<<(unsigned)blocks, kTcThreads, 0, st>>>(xb, wb, ob, s, n_tiles);
-      else
-        conv3x3_bf16_kernel<false>
-            <<<(unsigned)blocks, kTcThreads, 0, st>>>(xb, wb, ob, s, n_tiles);
-      break;
-    }
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const bool vec = CI % 8 == 0 && CO % 8 == 0 && aligned16(x) &&
+                   aligned16(w) && aligned16(out);
+  if (vec)
+    conv3x3_bf16_kernel<true>
+        <<<(unsigned)blocks, kTcThreads, 0, st>>>(xb, wb, ob, s, n_tiles);
+  else
+    conv3x3_bf16_kernel<false>
+        <<<(unsigned)blocks, kTcThreads, 0, st>>>(xb, wb, ob, s, n_tiles);
   return (int)cudaGetLastError();
 }

@@ -124,6 +124,8 @@ def library() -> ctypes.CDLL:
     lib.marconet_conv3x3_same.restype = i
     lib.marconet_conv3x3_wgmma.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.marconet_conv3x3_wgmma.restype = i
+    lib.marconet_conv3x3_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.marconet_conv3x3_f32.restype = i
     return lib
 
 

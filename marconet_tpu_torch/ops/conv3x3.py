@@ -13,17 +13,18 @@ rounded once. K3 is forward-only, as the JAX kernel is (it has no
 ``custom_vjp``): the result carries no autograd graph.
 
 On CPU tensors :func:`conv3x3_same` runs :func:`conv3x3_same_plain`; on
-CUDA tensors it launches one of K3's two kernels or raises. Which one is a
-rule on the inputs, :func:`conv3x3_path`, not a fallback:
+CUDA tensors it launches one of K3's three kernels or raises. Which one is
+a rule on the inputs, :func:`conv3x3_path`, not a fallback:
 
+- ``"fma"`` (``csrc/conv3x3_f32.cu``): every f32 input; 128 x 128 tiles
+  of full f32 FMAs on the FP32 pipes (no TF32), 8 x 8 sums a thread;
 - ``"wgmma"`` (``csrc/conv3x3_wgmma.cu``): TMA loads feeding Hopper's
   ``wgmma`` through an mbarrier ring, for bf16 inputs that TMA can tile
   (the SFT window convs);
-- ``"mma_sync"`` (``csrc/conv3x3.cu``): the general kernel, ``mma.sync``
-  tensor cores in bf16 and register-tiled FMA in f32, for every other
-  shape and for f32.
+- ``"mma_sync"`` (``csrc/conv3x3.cu``): the general bf16 kernel,
+  ``mma.sync`` tensor cores, for every other bf16 input.
 
-A launch on either path adds one to ``conv3x3_same.launches`` and to
+A launch on any path adds one to ``conv3x3_same.launches`` and to
 ``conv3x3_same.launches_by_path[path]``. The TPU kernel's 256 / 128
 channel blocks were a VMEM tiling rule, not part of the function: both
 versions take any CI and CO. K3 is bound by operations; the sources say
@@ -87,12 +88,16 @@ def conv3x3_path(shape_x, shape_w, dtype, aligned: bool) -> str:
     """Which CUDA kernel K3 runs for x of ``shape_x`` (N, H, W, CI) and w
     of ``shape_w`` (3, 3, CI, CO) in ``dtype``.
 
-    ``"wgmma"`` when TMA can tile the inputs: bf16; CI and CO multiples of
-    8 (16-byte strides; a CI tail past 64 is zero-filled by TMA); W
-    dividing 128 and H a multiple of 128 / W (an M tile of 128 pixels is
-    whole rows of one image); ``aligned``, i.e. 16-byte-aligned pointers.
-    ``"mma_sync"`` for every other input.
+    ``"fma"`` for every f32 input, whatever its shape or alignment (the
+    kernel takes 16-byte loads where it can). ``"wgmma"`` when TMA can
+    tile the inputs: bf16; CI and CO multiples of 8 (16-byte strides; a
+    CI tail past 64 is zero-filled by TMA); W dividing 128 and H a
+    multiple of 128 / W (an M tile of 128 pixels is whole rows of one
+    image); ``aligned``, i.e. 16-byte-aligned pointers. ``"mma_sync"`` for
+    every other bf16 input.
     """
+    if dtype == torch.float32:
+        return "fma"
     _, h, w, ci = shape_x
     co = shape_w[3]
     whole_rows = (0 < w and WGMMA_TILE_PIXELS % w == 0
@@ -117,6 +122,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, path: str) -> torch.Tensor:
         wk = w.permute(3, 0, 1, 2).contiguous()
         code = lib.marconet_conv3x3_wgmma(
             x.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, wd, ci, co,
+            stream)
+    elif path == "fma":
+        code = lib.marconet_conv3x3_f32(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci, co,
             stream)
     else:
         code = lib.marconet_conv3x3_same(
@@ -164,12 +173,16 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _conv3x3_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The general kernel on any CUDA input, whatever the rule picks: the
-    design ``"wgmma"`` replaced for the SFT shapes, kept for comparing the
-    two on the same inputs."""
+    """The general bf16 kernel on any bf16 CUDA input, whatever the rule
+    picks: the design ``"wgmma"`` replaced for the SFT shapes, kept for
+    comparing the two on the same inputs. Raises for f32, which only
+    ``"fma"`` computes."""
     _check_cuda(x, w)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"_conv3x3_mma_sync: the mma.sync kernel is bf16 "
+                         f"only; got {x.dtype}")
     return _launch(x, w, "mma_sync")
 
 
 conv3x3_same.launches = 0
-conv3x3_same.launches_by_path = {"wgmma": 0, "mma_sync": 0}
+conv3x3_same.launches_by_path = {"wgmma": 0, "mma_sync": 0, "fma": 0}

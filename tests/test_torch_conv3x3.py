@@ -103,6 +103,21 @@ def test_plain_is_the_cpu_path():
                                rtol=0, atol=0)
 
 
+def test_f32_cpu_tensors_launch_no_kernel():
+    """f32 at a shape the rule gives to the FMA kernel on the card: on CPU
+    tensors the wrapper still runs the plain version and no path counts a
+    launch."""
+    x, k = _inputs((2, 8, 8, 16, 8), seed=1)
+    xt, kt = torch.from_numpy(x), torch.from_numpy(k)
+    assert conv3x3_path(tuple(xt.shape), tuple(kt.shape), xt.dtype,
+                        True) == "fma"
+    before = dict(conv3x3_same.launches_by_path)
+    got = conv3x3_same(xt, kt)
+    assert conv3x3_same.launches_by_path == before
+    torch.testing.assert_close(got, conv3x3_same_plain(xt, kt),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("bad", ["rank", "taps", "channels", "dtype"])
 def test_rejects_bad_arguments(bad):
     x = torch.zeros(1, 4, 4, 8)
@@ -132,9 +147,15 @@ RAGGED_SHAPES = [(1, 1, 1, 5, 3), (3, 7, 13, 40, 24), (2, 9, 64, 300, 130),
     *[(s, BF16, True, "wgmma") for s in SFT_SHAPES],
     # the shapes the CPU and card tests use for the general kernel
     *[(s, BF16, True, "mma_sync") for s in RAGGED_SHAPES],
-    # f32 and a misaligned pointer keep the general kernel
-    (SFT_SHAPES[0], F32, True, "mma_sync"),
-    (SFT_SHAPES[3], F32, True, "mma_sync"),
+    # every f32 input takes the FMA kernel: the SFT shapes, a ragged
+    # shape, a misaligned pointer, CI % 4 != 0 and an empty input
+    (SFT_SHAPES[0], F32, True, "fma"),
+    (SFT_SHAPES[3], F32, True, "fma"),
+    ((3, 7, 13, 40, 24), F32, True, "fma"),
+    (SFT_SHAPES[0], F32, False, "fma"),
+    ((1, 4, 32, 6, 256), F32, True, "fma"),
+    ((1, 4, 0, 64, 64), F32, True, "fma"),
+    # a misaligned bf16 pointer keeps the general kernel
     (SFT_SHAPES[0], BF16, False, "mma_sync"),
     # boundaries of the rule: W dividing 128, H a multiple of 128 / W,
     # CI and CO multiples of 8
@@ -154,7 +175,8 @@ RAGGED_SHAPES = [(1, 1, 1, 5, 3), (3, 7, 13, 40, 24), (2, 9, 64, 300, 130),
     ((1, 4, 0, 64, 64), BF16, True, "mma_sync"),     # empty
 ])
 def test_conv3x3_path_rule(shape, dtype, aligned, want):
-    """The rule that picks K3's CUDA kernel: TMA + wgmma for bf16 inputs
-    that TMA can tile, the general mma.sync kernel for every other."""
+    """The rule that picks K3's CUDA kernel: the FMA kernel for every f32
+    input, TMA + wgmma for bf16 inputs that TMA can tile, the general
+    mma.sync kernel for every other bf16 input."""
     n, h, w, ci, co = shape
     assert conv3x3_path((n, h, w, ci), (3, 3, ci, co), dtype, aligned) == want

@@ -11,9 +11,10 @@ Every kernel does its math in f32 and rounds once, like its plain
 version. K1, K1b and K2 sum nothing, so their comparisons are exact; K3
 (``conv3x3_same``) sums 9 * CI products in another order than its plain
 version, so it is held within one bf16 ulp in bf16 and within 1e-5 of the
-largest value in f32 (the limits of ``chip_smoke.py``), on each of its two
-kernels: the TMA + wgmma one where ``conv3x3_path`` picks it and the
-general mma.sync one elsewhere. The backward
+largest value in f32 (the limits of ``chip_smoke.py``), on each of its
+three kernels: the FMA one for every f32 input, the TMA + wgmma one where
+``conv3x3_path`` picks it in bf16 and the general mma.sync one for every
+other bf16 input. The backward
 kernels (K1b and the write-back's) are also driven through autograd, to
 show that gradients reach the inputs through both kernels.
 """
@@ -288,16 +289,68 @@ def _assert_k3_close(got, x, k):
         assert float(d.max()) <= 1e-5 * float(want.abs().max())
 
 
+def _launched_once(before: dict, path: str) -> dict:
+    """``launches_by_path`` after one launch on ``path``."""
+    return {p: n + (p == path) for p, n in before.items()}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", K3_SHAPES)
 def test_conv3x3_matches_plain(dev, dtype, shape):
     x, k = _k3_inputs(dev, dtype, shape)
+    path = conv3x3_path(tuple(x.shape), tuple(k.shape), dtype, True)
+    assert path == ("fma" if dtype == torch.float32 else "mma_sync")
     before = conv3x3_same.launches
+    by_path = dict(conv3x3_same.launches_by_path)
     got = conv3x3_same(x, k)
     torch.cuda.synchronize()
     assert conv3x3_same.launches == before + 1
+    assert conv3x3_same.launches_by_path == _launched_once(by_path, path)
     assert got.shape == shape[:3] + (shape[4],) and got.dtype == dtype
     _assert_k3_close(got, x, k)
+
+
+# (N, H, W, CI, CO) in f32, all on the FMA kernel: three CO tiles (CO =
+# 264), a partial M tile, H = 1 and W = 1, CI = 3 and 6 (scalar A loads),
+# CO % 4 != 0 (scalar B copies and stores), both scalar, a long K (CI =
+# 512), and one 64 x 64 SFT window
+K3_F32_SHAPES = [(1, 8, 8, 64, 264), (1, 5, 7, 16, 32), (2, 1, 37, 8, 16),
+                 (2, 23, 1, 8, 16), (2, 9, 11, 3, 8), (1, 12, 12, 6, 20),
+                 (1, 9, 9, 16, 30), (1, 7, 6, 5, 9), (1, 8, 8, 512, 64),
+                 (1, 64, 64, 256, 256)]
+
+
+@pytest.mark.parametrize("shape", K3_F32_SHAPES)
+def test_conv3x3_f32_fma_matches_plain(dev, shape):
+    x, k = _k3_inputs(dev, torch.float32, shape)
+    before = dict(conv3x3_same.launches_by_path)
+    got = conv3x3_same(x, k)
+    torch.cuda.synchronize()
+    assert conv3x3_same.launches_by_path == _launched_once(before, "fma")
+    assert got.shape == shape[:3] + (shape[4],)
+    _assert_k3_close(got, x, k)
+
+
+def test_conv3x3_f32_misaligned_input(dev):
+    """An x view at storage offset 1: the FMA kernel's scalar loads."""
+    x, k = _k3_inputs(dev, torch.float32, (2, 16, 16, 64, 128))
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    x1 = buf[1:].view(x.shape)
+    x1.copy_(x)
+    assert x1.data_ptr() % 16 != 0
+    before = dict(conv3x3_same.launches_by_path)
+    got = conv3x3_same(x1, k)
+    torch.cuda.synchronize()
+    assert conv3x3_same.launches_by_path == _launched_once(before, "fma")
+    _assert_k3_close(got, x1, k)
+
+
+def test_conv3x3_general_kernel_refuses_f32(dev):
+    x, k = _k3_inputs(dev, torch.float32, (1, 8, 8, 16, 16))
+    before = dict(conv3x3_same.launches_by_path)
+    with pytest.raises(ValueError):
+        _conv3x3_mma_sync(x, k)
+    assert conv3x3_same.launches_by_path == before
 
 
 # (N, H, W, CI, CO) that the rule sends to the TMA + wgmma kernel: one K
@@ -318,8 +371,7 @@ def test_conv3x3_wgmma_matches_plain(dev, shape):
     before = dict(conv3x3_same.launches_by_path)
     got = conv3x3_same(x, k)
     torch.cuda.synchronize()
-    assert conv3x3_same.launches_by_path == {
-        "wgmma": before["wgmma"] + 1, "mma_sync": before["mma_sync"]}
+    assert conv3x3_same.launches_by_path == _launched_once(before, "wgmma")
     assert got.shape == shape[:3] + (shape[4],)
     _assert_k3_close(got, x, k)
 
@@ -332,8 +384,8 @@ def test_conv3x3_general_kernel_on_wgmma_shapes(dev, shape):
     before = dict(conv3x3_same.launches_by_path)
     got = _conv3x3_mma_sync(x, k)
     torch.cuda.synchronize()
-    assert conv3x3_same.launches_by_path == {
-        "wgmma": before["wgmma"], "mma_sync": before["mma_sync"] + 1}
+    assert conv3x3_same.launches_by_path == _launched_once(before,
+                                                           "mma_sync")
     _assert_k3_close(got, x, k)
 
 
