@@ -63,13 +63,14 @@
 //   of the next tile, where no staged load holds registers. That is the
 //   plain version's own order (a matmul per tap and 256-channel block,
 //   added into an f32 sum): its error against f64 matches the plain
-//   version's. One running sum over K = 9*CI products lands 5-8x further
-//   from f64 at the SFT shapes, past the gate of 2x; a second register a
-//   sum would cost 64 registers a thread and the second CTA on the SM.
+//   version's. One running sum over K = 9*CI products lands 4.97-10.89x
+//   further from f64 at the SFT shapes, past the gate of 2x; a second
+//   register a sum would cost 64 registers a thread and the second CTA on
+//   the SM.
 //
 // Resources (-Xptxas -v, nvcc 12.8, sm_90a): 128 registers a thread, no
-// spills in the 16-byte kernel (the scalar variants spill 16-40 bytes),
-// 96.5 KB of shared memory a CTA, two CTAs an SM.
+// spills except in the variant with scalar A and 16-byte B loads (12
+// bytes), 96.5 KB of shared memory a CTA, two CTAs an SM.
 #include <cstddef>
 
 #include "common.cuh"
@@ -77,26 +78,11 @@
 namespace marconet {
 namespace {
 
-// Build-time switches, for marconet_tpu_torch/tools/probe_conv3x3_f32.py
-// to measure the design; the port builds the defaults.
-//   FOLD  1: the two-level sum; 0: one running sum
-//   DIAG  diagnostic builds with wrong results, for timing only: 1 reads
-//         the shared operands once a tile, 2 loads no tile after the
-//         first, 3 drops the loop's barrier
-#ifndef MARCONET_K3_F32_FOLD
-#define MARCONET_K3_F32_FOLD 1
-#endif
-#ifndef MARCONET_K3_F32_DIAG
-#define MARCONET_K3_F32_DIAG 0
-#endif
-constexpr int kDiag = MARCONET_K3_F32_DIAG;
-
 constexpr int kBM = 128;             // output pixels of a CTA
 constexpr int kBN = 128;             // output channels of a CTA
 constexpr int kBK = 16;              // K (channels of one tap) of a tile
 constexpr int kThreads = 256;
 constexpr int kAStride = kBM + 4;    // floats of a shared A row
-constexpr bool kFold = MARCONET_K3_F32_FOLD != 0;
 constexpr int kFoldTiles = 256 / kBK;  // at most, tiles of a partial
 constexpr int kALanes = kBK / 4;     // threads that load one A pixel
 constexpr int kAPix = kBK / 8;       // A pixels a thread loads
@@ -113,9 +99,7 @@ struct Smem {
   float4 acc[16][kThreads];   // running sums, thread t's in column t
 };
 
-constexpr size_t smem_bytes() {
-  return kFold ? sizeof(Smem) : offsetof(Smem, acc);
-}
+constexpr size_t kSmemBytes = sizeof(Smem);
 
 // The element offset from a pixel's channel 0 to that of its tap (dy, dx).
 __device__ __forceinline__ int64_t tap_delta(const Shape& s, int tap) {
@@ -252,11 +236,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
-  if (kFold) {
 #pragma unroll
-    for (int q = 0; q < 16; ++q)
-      sm.acc[q][tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  for (int q = 0; q < 16; ++q)
+    sm.acc[q][tid] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   // a k step's operands, read one step ahead: fa / fb[slot][quadrant]
   float4 fa[2][2], fb[2][2];
@@ -281,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // a partial (one tap's products over 256 channels, or over the tap's
     // last channels) joins the running sums here, where no staged load
     // holds registers
-    if (kFold && fold_due) {
+    if (fold_due) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -297,12 +279,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     }
-    if (more && kDiag != 2) load_tile(buf ^ 1);
+    if (more) load_tile(buf ^ 1);
     load_frag(buf, 0, 0);
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
-      if (k + 1 < kBK && kDiag != 1) load_frag(buf, k + 1, (k + 1) & 1);
-      const int slot = kDiag == 1 ? 0 : k & 1;
+      if (k + 1 < kBK) load_frag(buf, k + 1, (k + 1) & 1);
+      const int slot = k & 1;
       const float4 a0 = fa[slot][0], a1 = fa[slot][1];
       const float4 b0 = fb[slot][0], b1 = fb[slot][1];
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -325,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       store_tile(buf ^ 1);
       advance();
     }
-    if (kDiag != 3) __syncthreads();
+    __syncthreads();
   }
 
   // epilogue: the running sum plus the last partial, stored with the pixel
@@ -336,15 +318,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (mo >= s.M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float4 v = make_float4(part[i][4 * h + 0], part[i][4 * h + 1],
-                             part[i][4 * h + 2], part[i][4 * h + 3]);
-      if (kFold) {
-        const float4 r = sm.acc[2 * i + h][tid];
-        v.x += r.x;
-        v.y += r.y;
-        v.z += r.z;
-        v.w += r.w;
-      }
+      float4 v = sm.acc[2 * i + h][tid];
+      v.x += part[i][4 * h + 0];
+      v.y += part[i][4 * h + 1];
+      v.z += part[i][4 * h + 2];
+      v.w += part[i][4 * h + 3];
       const int co = co0 + tn + 64 * h;
       float* o = out + mo * s.CO + co;
       if (kVecB && co < s.CO) {
@@ -372,14 +350,14 @@ int launch(const float* x, const float* w, float* out, const Shape& s,
   auto* kernel = conv3x3_f32_kernel<kVecA, kVecB>;
   // above 48 KB of shared memory, and room for two CTAs an SM
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes());
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)blocks, kThreads, smem_bytes(), st>>>(x, w, out, s,
-                                                          n_tiles);
+  kernel<<<(unsigned)blocks, kThreads, kSmemBytes, st>>>(x, w, out, s,
+                                                       n_tiles);
   return (int)cudaGetLastError();
 }
 
