@@ -59,6 +59,20 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    parameter tensor with a gradient moved, the step count and the exact
    launches of the kernels per step; prints samples/s and the G / D
    / SRD split from CUDA events and the peak device memory.
+11. front-end: ``CharacterFrontend`` at full size (YOLO11-m with one
+   class, the default ``OCRConfig`` recognizer) from seeded weights saved
+   with ``torch.save`` and loaded by ``from_checkpoints``, on the card and
+   on the CPU over two seeded lines: YOLO scores and boxes before NMS, the
+   kept set (a fixed count per line), int boxes within 1 px, recognizer
+   logits and ids; detection, recognition and the whole front-end timed
+   per line (CUDA events and the host clock).
+12. CLIs: ``test_sr`` (``-m`` and with the front-end), ``test_w`` and
+   ``serve_demo`` (front-end, ``--repeat`` 4) in-process at full width on
+   seeded line PNGs written with the port's codec, then the page server
+   with the front-end on lines without text (a split line detected per
+   segment); exact K1 / K2 launches per restore (19 / 2, no other kernel),
+   every output decoded by ``read_png`` at its shape; prints
+   ``serve_demo``'s warm lines/s.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -73,6 +87,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -81,8 +96,18 @@ import torch
 import torch.nn.functional as F
 
 from marconet_tpu_torch import native
+from marconet_tpu_torch.cli import serve_demo as cli_serve_demo
+from marconet_tpu_torch.cli import test_sr as cli_test_sr
+from marconet_tpu_torch.cli import test_w as cli_test_w
 from marconet_tpu_torch.data.batch_prep import prepare_train_batch
 from marconet_tpu_torch.alphabet import alphabet
+from marconet_tpu_torch.models.convnext_ocr import ConvNextViT, OCRConfig
+from marconet_tpu_torch.models.frontend import (
+    CharacterFrontend,
+    letterbox,
+    mask_segment,
+    prepare_segment,
+)
 from marconet_tpu_torch.models.pipeline import BLANK_INDEX, MARCONet
 from marconet_tpu_torch.models.srnet import window_geometry
 from marconet_tpu_torch.ops.layers import nchw
@@ -105,12 +130,14 @@ from marconet_tpu_torch.ops.sft_writeback import (
     sft_writeback_plain,
 )
 from marconet_tpu_torch.serve import TextPageRestorer, _pack_uint8
+from marconet_tpu_torch.models.yolo import BatchNorm, YOLO11, nms_static
 from marconet_tpu_torch.train.train_step import (
     NETS,
     MARCONetTrainer,
     TrainBatch,
     TrainConfig,
 )
+from marconet_tpu_torch.utils.png import read_png, write_png
 
 SERVE_BATCH = 16    # bench.py's workload: 16 lines of 8 characters
 SERVE_SLOTS = 8
@@ -1482,7 +1509,315 @@ def _profile_step(trainer, batch) -> None:
             for t, k in ops[:12]))
 
 
+# ---------------------------------------------------------------------------
+# the front-end: YOLO11-m + ConvNextViT
+# ---------------------------------------------------------------------------
+
+# the seed of the front-end's random weights and the detect head's class
+# bias, chosen so that each smoke line gives FE_BOXES[i] boxes (1 to 16):
+# at -2.0 every anchor scores above the 0.07 threshold by at least 0.043
+# and NMS keeps 6 and 5 of them, on the card and on its machine's CPU
+# (torch 2.11; torch's CPU generator draws other weights in other
+# versions, so the counts belong to that machine)
+FE_SEED = 0
+FE_CLS_BIAS = -2.0
+FE_BOXES = (6, 5)
+# the smoke's lines: (height, width) of each, from FE_LINE_SEED
+FE_LINES = ((64, 1024), (48, 700))
+FE_LINE_SEED = 8
+# the recognizer's positional embedding: 75 tokens, a canonical input of
+# 300 x 32 (a 5-box window of square characters squeezed or padded to it);
+# the released model's length is not in the repository
+OCR_SEQ_LEN = 75
+# card (cuDNN, TF32 off) against CPU, f32: YOLO before NMS with the
+# tolerances of tests/test_frontend.py's whole-graph oracle (scores rtol /
+# atol 2e-4; boxes rtol 2e-4, atol 2e-2 px); recognizer logits within
+# OCR_LOGIT_TOL, and ids equal wherever the CPU's top-2 margin exceeds
+# twice that
+YOLO_TOL = {"scores": (2e-4, 2e-4), "boxes": (2e-4, 2e-2)}
+OCR_LOGIT_TOL = 1e-3
+FE_ITERS = 5
+
+
+def _fe_lines() -> list:
+    gen = np.random.default_rng(FE_LINE_SEED)
+    return [gen.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in FE_LINES]
+
+
+def _write_frontend_checkpoints(path: str) -> None:
+    """Seeded full-size front-end weights, saved as the files
+    ``CharacterFrontend.from_checkpoints`` looks for: YOLO11-m (one class)
+    with BatchNorm statistics drawn as ``tests/yolo_oracle.py`` draws them
+    (at their init, activations fade over the 23 layers and every anchor
+    scores the same to 1e-5) and the class bias set to ``FE_CLS_BIAS``;
+    the default ``OCRConfig`` recognizer under ModelScope's
+    ``recognizer.`` prefix; and the alphabet as its vocabulary (class 0
+    the blank)."""
+    g = torch.Generator().manual_seed(FE_SEED)
+    det = YOLO11(nc=1, device="cpu", generator=g)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(
+                    0.5 + 0.5 * torch.randn(c, generator=g).abs())
+        for head in det.model[23].cv3:
+            head[2].bias.fill_(FE_CLS_BIAS)
+    torch.save(det.state_dict(),
+               os.path.join(path, "yolo11m_character_sd.pth"))
+    ocr = ConvNextViT(OCRConfig(seq_len=OCR_SEQ_LEN), device="cpu",
+                      generator=g)
+    torch.save({f"recognizer.{k}": v for k, v in ocr.state_dict().items()},
+               os.path.join(path, "ocr_convnext_sd.pth"))
+    with open(os.path.join(path, "ocr_vocab.txt"), "w",
+              encoding="utf-8") as f:
+        f.writelines(f"{c}\n" for c in alphabet())
+
+
+def _timed(fn, iters: int = FE_ITERS) -> tuple:
+    """(CUDA-event ms, host ms) per call of ``fn`` after one warm-up call;
+    ``fn`` returns host arrays, so both clocks span the same work."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / iters,
+            (time.perf_counter() - t0) * 1e3 / iters)
+
+
+def phase_frontend(smi: str, ckpt_dir: str) -> None:
+    """``CharacterFrontend`` at full size (YOLO11-m, ConvNeXt-T + 12 ViT
+    blocks over 6736 classes) from seeded checkpoints written to
+    ``ckpt_dir``, on the card and on the CPU: YOLO before NMS within
+    ``YOLO_TOL``, the same kept boxes (``FE_BOXES`` per line), int boxes
+    within 1 px, recognizer logits within ``OCR_LOGIT_TOL`` and ids equal
+    where the margin allows; then detection, recognition and the whole
+    front-end timed per line."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    _write_frontend_checkpoints(ckpt_dir)
+    gpu = CharacterFrontend.from_checkpoints(ckpt_dir, device="cuda")
+    cpu = CharacterFrontend.from_checkpoints(ckpt_dir, device="cpu")
+    counts = []
+    for i, img in enumerate(_fe_lines()):
+        padded, _, _ = letterbox(img, gpu.imgsz)
+        x = torch.from_numpy(padded[None].astype(np.float32) / 255.0)
+        with torch.inference_mode():
+            got = gpu.yolo(x.cuda())
+            want = cpu.yolo(x)
+            for name, g, w in zip(("boxes", "scores"), got, want):
+                rtol, atol = YOLO_TOL[name]
+                say(f"[frontend] line {i} {tuple(img.shape)}: YOLO {name} "
+                    f"{tuple(g.shape)} max_abs_diff {max_abs(g.cpu(), w):.3e}"
+                    f" (rtol {rtol:g}, atol {atol:g})")
+                torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=atol)
+            kept = []
+            for net_out in (got, want):
+                top, _, valid = nms_static(
+                    net_out[0][0], net_out[1][0, :, 0], gpu.max_det,
+                    gpu.iou, gpu.conf)
+                kept.append(top[valid > 0].cpu())
+        sg = want[1][0, :, 0]
+        near = float((sg - gpu.conf).abs().min())
+        say(f"[frontend] line {i}: kept {len(kept[0])} (card) / "
+            f"{len(kept[1])} (CPU) boxes; nearest score to the threshold "
+            f"{gpu.conf} is {near:.3e} away; top scores "
+            f"{sg.topk(4).values.tolist()}")
+        # the same boxes kept, in the same score order
+        torch.testing.assert_close(kept[0], kept[1], rtol=YOLO_TOL["boxes"][0],
+                                   atol=YOLO_TOL["boxes"][1])
+        boxes_g, boxes_c = gpu.detect_boxes(img), cpu.detect_boxes(img)
+        if boxes_g.shape != boxes_c.shape or (
+                len(boxes_g) and np.abs(boxes_g - boxes_c).max() > 1):
+            raise AssertionError(f"line {i}: card boxes {boxes_g.tolist()} "
+                                 f"against CPU {boxes_c.tolist()}")
+        counts.append(len(boxes_g))
+
+        segs = [mask_segment(img, boxes_c, j)[0] for j in range(len(boxes_c))]
+        prep = np.stack([prepare_segment(s, gpu.ocr.config.canonical_width)
+                         for s in segs]).astype(np.float32)
+        prep = torch.from_numpy((prep / 255.0 - 0.5) / 0.5)
+        with torch.inference_mode():
+            lg, lc = gpu.ocr(prep.cuda()).cpu(), cpu.ocr(prep)
+        top2 = lc.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * OCR_LOGIT_TOL
+        same = lg.argmax(-1) == lc.argmax(-1)
+        say(f"[frontend] line {i}: recognizer logits {tuple(lc.shape)} "
+            f"max_abs_diff {max_abs(lg, lc):.3e} (limit {OCR_LOGIT_TOL:g}); "
+            f"ids equal on {int(same.sum())} of {same.numel()} frames, "
+            f"{int(sure.sum())} with a margin over {2 * OCR_LOGIT_TOL:g}")
+        if max_abs(lg, lc) > OCR_LOGIT_TOL or not bool(same[sure].all()):
+            raise AssertionError(f"line {i}: recognizer differs")
+        res_g, res_c = gpu(img), cpu(img)
+        say(f"[frontend] line {i}: text {res_g.text!r} (card), "
+            f"{res_c.text!r} (CPU)")
+
+        ms = {"detect_boxes": _timed(lambda: gpu.detect_boxes(img)),
+              "recognize_segments": _timed(
+                  lambda: gpu.recognize_segments(segs)),
+              "__call__": _timed(lambda: gpu(img))}
+        say(f"[frontend] line {i} {tuple(img.shape)}, {len(segs)} boxes, "
+            f"f32 on {smi}: ms per line (CUDA events / host clock): " +
+            ", ".join(f"{k} {e:.2f} / {h:.2f}" for k, (e, h) in ms.items()))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    say(f"[frontend] boxes per line: {counts} (expected {list(FE_BOXES)})")
+    if counts != list(FE_BOXES):
+        raise AssertionError(f"boxes per line {counts}, expected "
+                             f"{list(FE_BOXES)}")
+
+
+# ---------------------------------------------------------------------------
+# the CLIs
+# ---------------------------------------------------------------------------
+
+CLI_COPIES = 3          # files per smoke line: 6 line PNGs
+CLI_REPEAT = 4
+
+
+def _cli_counted(what: str, restores, fn):
+    """Run ``fn`` with the kernel counts from 0; hold K1 / K2 to 19 / 2 per
+    restore (``restores(result)``) and every other kernel to 0."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _counts()
+    n = restores(out)
+    _check_counts("cli", got, {k: v * n for k, v in
+                               RESTORE_LAUNCHES.items()},
+                  f"{what} ({n} restores)")
+    return out, got
+
+
+def _check_pngs(paths, shapes, what: str) -> None:
+    for path, shape in zip(paths, shapes):
+        img = read_png(path)
+        if img.shape != shape:
+            raise AssertionError(f"{what}: {os.path.basename(path)} is "
+                                 f"{img.shape}, expected {shape}")
+
+
+def phase_cli(smi: str, ckpt_dir: str, work: str) -> dict:
+    """The three CLIs in-process at full width on the card, on seeded line
+    PNGs written with the port's codec: ``test_sr`` with ``-m`` and with
+    the front-end of ``ckpt_dir``, ``test_w``, ``serve_demo`` (front-end,
+    ``--repeat`` 4), then the page server with the front-end on a page
+    whose over-wide line has no text. Exact K1 / K2 launches per restore,
+    every output decoded by ``read_png`` at its expected shape."""
+    lines_dir = os.path.join(work, "lines")
+    os.makedirs(lines_dir)
+    chars = [c for c in alphabet() if c.isalnum()]
+    gen = np.random.default_rng(9)
+    names = []
+    for i, img in enumerate(_fe_lines()):
+        for c in range(CLI_COPIES):
+            text = "".join(chars[j] for j in gen.integers(0, len(chars),
+                                                          3 + c))
+            names.append(f"line{i}c{c}_{text}.png")
+            write_png(os.path.join(lines_dir, names[-1]), img)
+    shows = {n: round(FE_LINES[int(n[4])][1] * 128 / FE_LINES[int(n[4])][0])
+             for n in names}
+    launches = dict.fromkeys(_WRAPPERS, 0)
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    common = ["--ckpt_dir", ckpt_dir, "--device", "cuda"]
+    for flag in (["-m"], []):
+        out = os.path.join(work, f"sr{''.join(flag)}")
+        t0 = time.perf_counter()
+        done, got = _cli_counted(
+            f"test_sr {' '.join(flag) or '(front-end)'}",
+            lambda d: sum(r for _, _, r in d),
+            lambda: cli_test_sr.main(["-i", lines_dir, "-o", out] + flag
+                                     + common))
+        if [d[0] for d in done] != sorted(names):
+            raise AssertionError(f"test_sr {flag}: restored {done}")
+        _check_pngs([os.path.join(out, f"{os.path.splitext(n)[0]}_"
+                                  f"{t.replace(os.sep, '_')}.png")
+                     for n, t, _ in done],
+                    [(4 * 128, shows[n], 3) for n, _, _ in done],
+                    "test_sr collage")
+        say(f"[cli] test_sr {' '.join(flag) or '(front-end)'}: "
+            f"{len(done)} collages, texts "
+            f"{[t for _, t, _ in done]}, {time.perf_counter() - t0:.2f} s")
+        add(got)
+
+    out = os.path.join(work, "w")
+    w1, w2 = (os.path.join(lines_dir, names[i]) for i in (0, CLI_COPIES))
+    # one prior batch: the prior's 19 K1 launches, no SR net
+    _reset_counts()
+    paths = cli_test_w.main(["-w1", w1, "-w2", w2, "-o", out] + common)
+    torch.cuda.synchronize()
+    got = _counts()
+    _check_counts("cli", got, {**dict.fromkeys(_WRAPPERS, 0),
+                               "fused_leaky_relu": 19}, "test_w")
+    add(got)
+    n_lab = read_png(paths[0]).shape[1] // 128
+    _check_pngs(paths, [(128, 128 * n_lab, 3)] * len(paths), "test_w")
+    if len(paths) != 11:
+        raise AssertionError(f"test_w wrote {len(paths)} blends")
+    say(f"[cli] test_w: {len(paths)} blends of {n_lab} characters")
+
+    out = os.path.join(work, "serve")
+    res, got = _cli_counted(
+        f"serve_demo --repeat {CLI_REPEAT}", lambda r: 2 * r["chunks"],
+        lambda: cli_serve_demo.main(["-i", lines_dir, "-o", out,
+                                     "--repeat", str(CLI_REPEAT)] + common))
+    add(got)
+    n = len(names) * CLI_REPEAT
+    if len(res["results"]) != n:
+        raise AssertionError(f"serve_demo: {len(res['results'])} results")
+    _check_pngs([os.path.join(out, f"{i:03d}_{os.path.splitext(m)[0]}.png")
+                 for i, m in enumerate(res["names"])],
+                [(128, shows[m], 3) for m in res["names"]], "serve_demo")
+    say(f"[cli] serve_demo (front-end, bf16) {n} lines in {res['chunks']} "
+        f"chunk(s) a pass: first pass {res['first_s']:.2f} s, warm "
+        f"{res['warm_s'] * 1e3:.1f} ms = {res['lines_per_s']:.2f} lines/s "
+        f"on {smi}")
+
+    # the page server with the front-end: a line without text, and one
+    # over-wide line without text that is detected per segment
+    fe = CharacterFrontend.from_checkpoints(ckpt_dir, device="cuda")
+    net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0)
+    img0, img1 = _fe_lines()
+    page = np.zeros((img0.shape[0] + img1.shape[0], 2 * img1.shape[1], 3),
+                    np.uint8)
+    page[:img0.shape[0], :img0.shape[1]] = img0
+    page[img0.shape[0]:, :img1.shape[1]] = img1
+    page[img0.shape[0]:, img1.shape[1]:] = img1
+    boxes = [(0, 0, img0.shape[1], img0.shape[0]),
+             (0, img0.shape[0], page.shape[1], page.shape[0])]
+    server = TextPageRestorer(net, frontend=fe)
+    segs, groups = server._page_requests(page, boxes, None, None)
+    result, got = _cli_counted(
+        "restore_page with the front-end", lambda r: 1,
+        lambda: server.restore_page(page, boxes))
+    add(got)
+    texts = [fe(r.image).text for r in segs]
+    want = ["".join(texts[j] for j in g) for g in groups]
+    if [r.text for r in result] != want or len(groups[1]) < 2:
+        raise AssertionError(f"page texts {[r.text for r in result]}, "
+                             f"expected {want} over {groups}")
+    say(f"[cli] restore_page with the front-end: {len(segs)} segments "
+        f"({[len(g) for g in groups]} a line), texts {want}")
+    del net, fe
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     report = phase_kernels()
@@ -1493,10 +1828,16 @@ def main() -> None:
     phase_interpolate()
     phase_train_parity()
     train = phase_train(smi)
+    with tempfile.TemporaryDirectory() as work:
+        ckpt_dir = os.path.join(work, "checkpoints")
+        os.makedirs(ckpt_dir)
+        phase_frontend(smi, ckpt_dir)
+        cli = phase_cli(smi, ckpt_dir, work)
     kernels = [dict(name=name, **KERNELS[name],
                     launches=k3[name] + serve[name] + page[name]
-                    + train[name], **report[name])
+                    + train[name] + cli[name], **report[name])
                for name in KERNELS]
+    say(f"[smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

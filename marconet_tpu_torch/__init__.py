@@ -7,10 +7,12 @@ hand-written CUDA kernels (``csrc/``). The JAX package stays the reference
 that the port is tested against.
 
 Subpackages mirror the JAX package: ``ops`` (layers and kernel wrappers),
-``models`` (encoder, prior generator, SR net, pipeline), ``train``
-(losses, discriminators, LPIPS, trainer, checkpoints), ``data`` (training
-batch geometry) and ``convert`` (JAX variables / reference ``.pth`` state
-dicts -> this package's modules). The package imports torch and never jax,
+``models`` (encoder, prior generator, SR net, pipeline, and the YOLO11 +
+ConvNeXt-ViT front-end), ``train`` (losses, discriminators, LPIPS,
+trainer, checkpoints), ``data`` (training batch geometry), ``utils``
+(image helpers, a PNG codec), ``cli`` (the command-line tools) and
+``convert`` (JAX variables / reference and front-end checkpoints -> this
+package's modules). The package imports torch and never jax,
 nor any module of the JAX package.
 """
 

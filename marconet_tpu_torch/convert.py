@@ -9,7 +9,14 @@
 - ``lpips_from_jax``: JAX LPIPS variables -> the port's LPIPS.
 - ``trainer_from_jax``: a JAX ``TrainState``'s five nets -> a port trainer.
 - ``load_reference_pth``: a released reference ``.pth`` -> strict
-  ``load_state_dict`` into one of the port's networks.
+  ``load_state_dict`` into one of the port's networks;
+  ``load_reference_checkpoints`` loads all three into a ``MARCONet``,
+  ``load_reference_or_random`` falls back to random weights with a
+  warning, as the CLIs do.
+- The front-end: ``load_yolo_checkpoint`` (an ultralytics YOLO11 export),
+  ``load_ocr_checkpoint`` / ``ocr_state_from_modelscope`` / ``load_vocab``
+  (a ModelScope ConvNextViT export, topology from its shapes), and
+  ``yolo_from_jax`` / ``ocr_from_jax`` (JAX variables -> these modules).
 
 Layouts: HWIO conv -> OIHW; (in, out) dense -> (out, in); modulated-conv
 (k, k, I, O) -> (1, O, I, k, k); per-channel biases -> (1, C, 1, 1);
@@ -19,7 +26,10 @@ it only reads nested dicts of arrays.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import json
+import os
+import re
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -303,3 +313,324 @@ def load_reference_pth(module: nn.Module, path: str,
             break
     module.load_state_dict(ckpt, strict=True)
     return module
+
+
+# the released checkpoints, in the order of MARCONet's three networks
+# (reference ``checkpoints/download_github.py:1-11``)
+REFERENCE_FILES = ("net_transformer_encoder.pth", "net_prior_generation.pth",
+                   "net_sr.pth")
+
+
+def load_reference_checkpoints(ckpt_dir: str, net):
+    """Load the three released checkpoints under ``ckpt_dir`` into a
+    ``MARCONet`` (the counterpart of ``marconet_tpu/convert/
+    torch_import.py::load_reference_checkpoints``): ``net_transformer_
+    encoder.pth``, ``net_prior_generation.pth`` and ``net_sr.pth``, each
+    strictly (:func:`load_reference_pth`). Returns ``net``."""
+    for name, module in zip(REFERENCE_FILES,
+                            (net.encoder, net.prior, net.srnet)):
+        load_reference_pth(module, os.path.join(ckpt_dir, name))
+    return net
+
+
+def load_reference_or_random(net, ckpt_dir: str) -> bool:
+    """The CLIs' weights: the released checkpoints when all three are under
+    ``ckpt_dir`` (True), else a warning and ``net``'s own seeded random
+    weights, which run the pipeline but restore nothing (False). The
+    behaviour of the JAX CLIs' ``build_params``."""
+    if ckpt_dir and all(os.path.exists(os.path.join(ckpt_dir, n))
+                        for n in REFERENCE_FILES):
+        print(f"Loading reference checkpoints from {ckpt_dir}")
+        load_reference_checkpoints(ckpt_dir, net)
+        return True
+    print(f"WARNING: released checkpoints not found under {ckpt_dir!r} — "
+          f"using random weights (pipeline demo only). Put "
+          f"{', '.join(REFERENCE_FILES)} there to restore for real.")
+    return False
+
+
+# ---------------------------------------------------------------------------
+# front-end: YOLO11 detector and ConvNextViT recognizer
+# ---------------------------------------------------------------------------
+
+
+class ConversionError(RuntimeError):
+    """A state dict that does not fit the module it is loaded into."""
+
+
+def _torch_load(path: str):
+    """A plain tensor state dict from ``path``; a file that needs
+    unpickling of objects (an ultralytics bundle, a pickled module) is
+    refused."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        raise ConversionError(
+            f"{path} is not a plain tensor state dict (weights_only load "
+            f"failed: {e}); export its state_dict() with torch.save") from e
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return ckpt
+
+
+_YOLO_LAYERS = re.compile(r"^[bh](\d+)$")
+
+
+def _yolo_key(path) -> str:
+    """A flax path of ``marconet_tpu.models.yolo.YOLO11`` -> the
+    ultralytics module path."""
+    out = []
+    for i, part in enumerate(path):
+        m = _YOLO_LAYERS.match(part)
+        if i == 0 and m:
+            out.append(f"model.{m.group(1)}")
+        elif i == 0 and part == "detect":
+            out.append("model.23")
+        elif re.fullmatch(r"m\d+", part):
+            out.append(f"m.{part[1:]}")
+        elif re.fullmatch(r"ffn\d", part):
+            out.append(f"ffn.{int(part[3:]) - 1}")
+        elif re.fullmatch(r"cv[23](_\d)+", part):
+            out.append(part.replace("_", "."))
+        else:
+            out.append(part)
+    return ".".join(out)
+
+
+def yolo_from_jax(variables: Mapping[str, Any]) -> StateDict:
+    """``YOLO11`` flax variables (``params`` and ``batch_stats``) ->
+    ultralytics-keyed state dict for the port's ``YOLO11`` (the inverse of
+    ``marconet_tpu/convert/yolo_import.py::convert_yolo11``)."""
+    sd: StateDict = {}
+
+    def walk(tree, path, stats):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,), stats)
+                continue
+            prefix = _yolo_key(path)
+            if stats:                              # bn/{mean,var}
+                name = {"mean": "running_mean", "var": "running_var"}[k]
+                sd[f"{prefix}.{name}"] = _t(v)
+            elif path[-1] == "bn":
+                sd[f"{prefix}.{'weight' if k == 'scale' else 'bias'}"] = \
+                    _t(v)
+            elif k == "kernel":
+                conv = "conv." if "bn" in tree else ""
+                sd[f"{prefix}.{conv}weight"] = _conv(v)
+            else:
+                sd[f"{prefix}.bias"] = _t(v)
+
+    walk(variables["params"], (), False)
+    walk(variables["batch_stats"], (), True)
+    return sd
+
+
+def load_yolo_checkpoint(path: str) -> StateDict:
+    """A YOLO11 checkpoint -> the state dict the port's ``YOLO11`` loads
+    strictly. Takes a bare state dict or one under ``state_dict``, as
+    ``marconet_tpu/convert/yolo_import.py::load_yolo_checkpoint`` does
+    (its ultralytics-bundle case needs the ultralytics package to
+    unpickle, so the port refuses such a file), and drops what carries no
+    weight: BatchNorm's ``num_batches_tracked`` counters and the Detect
+    head's fixed DFL projection (``model.23.dfl.conv.weight``, which must
+    be 0..15)."""
+    sd = _torch_load(path)
+    dfl = sd.get("model.23.dfl.conv.weight")
+    if dfl is not None and not torch.equal(
+            dfl.float().reshape(-1), torch.arange(dfl.numel()).float()):
+        raise ConversionError(f"{path}: model.23.dfl.conv.weight is not the "
+                              "fixed 0..15 projection")
+    return {k: v.float() for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")
+            and k != "model.23.dfl.conv.weight"}
+
+
+# keys of a ModelScope ConvNextViT export that are not mapped by design
+_OCR_IGNORE = (r"num_batches_tracked", r"(^|\.)head_dist\.",
+               r"(^|\.)dist_token$")
+
+
+def _find_prefix(keys, marker: str) -> str:
+    """The uniform prefix in front of ``marker`` (e.g. 'recognizer.')."""
+    cands = {k[:k.index(marker)] for k in keys if marker in k}
+    if not cands:
+        raise ConversionError(f"no key contains {marker!r}; keys look "
+                              f"like: {sorted(keys)[:5]}")
+    if len(cands) > 1:
+        raise ConversionError(f"ambiguous prefixes for {marker!r}: "
+                              f"{sorted(cands)}")
+    return cands.pop()
+
+
+def ocr_state_from_modelscope(sd: Mapping[str, Any],
+                              num_heads: Optional[int] = None):
+    """A ModelScope ConvNextViT state dict -> (state dict of the port's
+    ``ConvNextViT``, ``OCRConfig``): the counterpart of ``marconet_tpu/
+    convert/ocr_import.py::convert_modelscope_ocr``. The topology comes
+    from the shapes (stage depths and widths, ViT width and depth, class
+    count, cls token, projection, final CNN norm, layer scale, the
+    positional embedding's length); the head count from ``num_heads`` (the
+    export manifest's) or the timm convention of 64-wide heads. Strict: a
+    missing key or one that maps nowhere raises ``ConversionError``.
+    """
+    from marconet_tpu_torch.models.convnext_ocr import (
+        ConvNextViT,
+        OCRConfig,
+    )
+
+    ignore = [re.compile(p) for p in _OCR_IGNORE]
+    sd = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in sd.items()
+          if not any(p.search(k) for p in ignore)}
+    cp = _find_prefix(sd, "downsample_layers")
+    vp = _find_prefix(sd, "blocks.0.norm1")
+    cnn_final_norm = f"{cp}norm.weight" in sd and cp != vp
+
+    out: StateDict = {}
+    unmapped = []
+    for k, v in sd.items():
+        rest_c, rest_v = k[len(cp):], k[len(vp):]
+        if k.startswith(cp) and rest_c.startswith(("downsample_layers.",
+                                                   "stages.")):
+            out[rest_c] = v
+        elif cnn_final_norm and k.startswith(f"{cp}norm."):
+            out[f"cnn_norm.{rest_c[len('norm.'):]}"] = v
+        elif k.startswith(vp):
+            out[rest_v] = v
+        else:
+            unmapped.append(k)
+
+    def get(key):
+        if key not in out:
+            raise ConversionError(f"missing key {key!r}")
+        return out[key]
+
+    dims = [get("downsample_layers.0.0.weight").shape[0]]
+    while f"downsample_layers.{len(dims)}.1.weight" in out:
+        dims.append(out[f"downsample_layers.{len(dims)}.1.weight"].shape[0])
+    depths = []
+    for s in range(len(dims)):
+        n = 0
+        while f"stages.{s}.{n}.dwconv.weight" in out:
+            n += 1
+        if n == 0:
+            raise ConversionError(f"stage {s} has no blocks")
+        depths.append(n)
+    pos = get("pos_embed")
+    out["pos_embed"] = pos = pos.reshape(1, pos.shape[-2], pos.shape[-1])
+    if "cls_token" in out:
+        out["cls_token"] = out["cls_token"].reshape(1, 1, -1)
+    proj = out.get("patch_embed.proj.weight")
+    if proj is not None and proj.dim() == 4:
+        if proj.shape[2] * proj.shape[3] != 1:
+            raise ConversionError(
+                f"patch_embed.proj kernel {tuple(proj.shape)} is spatial; "
+                "the CNN-fed ViT expects a pointwise projection")
+        out["patch_embed.proj.weight"] = proj[:, :, 0, 0]
+    depth = 0
+    while f"blocks.{depth}.norm1.weight" in out:
+        depth += 1
+    if depth == 0:
+        raise ConversionError("no ViT blocks found")
+    vit_dim = pos.shape[-1]
+    cfg = OCRConfig(
+        depths=tuple(depths), dims=tuple(dims), vit_depth=depth,
+        vit_dim=vit_dim,
+        # not recoverable from shapes, and attention depends on it
+        vit_heads=num_heads if num_heads else max(1, vit_dim // 64),
+        vit_mlp_ratio=get("blocks.0.mlp.fc1.weight").shape[0] / vit_dim,
+        num_classes=get("head.weight").shape[0], blank_index=0,
+        use_cls_token="cls_token" in out, use_vit_proj=proj is not None,
+        cnn_final_norm=cnn_final_norm,
+        layer_scale_init=1e-6 if "stages.0.0.gamma" in out else 0.0,
+        seq_len=pos.shape[-2])
+    want = ConvNextViT(cfg, device="meta",
+                       generator=torch.Generator()).state_dict()
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise ConversionError(f"missing key(s) {missing[:10]}")
+    unmapped += [k for k in out if k not in want]
+    if unmapped:
+        raise ConversionError(f"{len(unmapped)} unmapped state-dict keys "
+                              f"(renamed or extra layers?): "
+                              f"{sorted(unmapped)[:10]}")
+    return out, cfg
+
+
+def load_vocab(path: str) -> str:
+    """ModelScope ``vocab.txt`` -> charset string (one character a line)."""
+    chars = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if line:
+                chars.append(line[0])
+    return "".join(chars)
+
+
+def load_ocr_checkpoint(path: str):
+    """An exported ModelScope recognizer (``.pth`` / ``.pt``) -> (state
+    dict, ``OCRConfig``) through :func:`ocr_state_from_modelscope`. An
+    ``ocr_key_manifest.json`` beside the file gives the true head count
+    (its ``__meta__.num_heads``)."""
+    ckpt = _torch_load(path)
+    num_heads = None
+    manifest = os.path.join(os.path.dirname(path), "ocr_key_manifest.json")
+    if os.path.exists(manifest):
+        with open(manifest, encoding="utf-8") as f:
+            num_heads = json.load(f).get("__meta__", {}).get("num_heads")
+    return ocr_state_from_modelscope(
+        {k: v.detach().float().numpy() for k, v in ckpt.items()},
+        num_heads=num_heads)
+
+
+def ocr_from_jax(variables: Mapping[str, Any]) -> StateDict:
+    """``ConvNextViT`` flax variables -> the port's ``ConvNextViT`` state
+    dict (the inverse of ``convert_modelscope_ocr`` after its prefix)."""
+    p = variables["params"]
+    cnn = p["cnn"]
+    sd: StateDict = {"downsample_layers.0.0.weight":
+                     _conv(cnn["stem_conv"]["kernel"]),
+                     "downsample_layers.0.0.bias":
+                     _t(cnn["stem_conv"]["bias"])}
+    _norm(sd, "downsample_layers.0.1", cnn["stem_norm"])
+    si = 1
+    while f"down_conv{si}" in cnn:
+        _norm(sd, f"downsample_layers.{si}.0", cnn[f"down_norm{si}"])
+        sd[f"downsample_layers.{si}.1.weight"] = _conv(
+            cnn[f"down_conv{si}"]["kernel"])
+        sd[f"downsample_layers.{si}.1.bias"] = _t(
+            cnn[f"down_conv{si}"]["bias"])
+        si += 1
+    for name, blk in cnn.items():
+        m = re.fullmatch(r"stage(\d+)_(\d+)", name)
+        if not m:
+            continue
+        b = f"stages.{m.group(1)}.{m.group(2)}"
+        sd[f"{b}.dwconv.weight"] = _conv(blk["dw_kernel"])
+        sd[f"{b}.dwconv.bias"] = _t(blk["dw_bias"])
+        _norm(sd, f"{b}.norm", blk["norm"])
+        _dense(sd, f"{b}.pwconv1", blk["pw1"])
+        _dense(sd, f"{b}.pwconv2", blk["pw2"])
+        if "gamma" in blk:
+            sd[f"{b}.gamma"] = _t(blk["gamma"])
+    if "cnn_norm" in p:
+        _norm(sd, "cnn_norm", p["cnn_norm"])
+    if "vit_proj" in p:
+        _dense(sd, "patch_embed.proj", p["vit_proj"])
+    if "cls_token" in p:
+        sd["cls_token"] = _t(p["cls_token"])
+    sd["pos_embed"] = _t(p["pos_embed"])
+    i = 0
+    while f"block{i}" in p:
+        blk, b = p[f"block{i}"], f"blocks.{i}"
+        _norm(sd, f"{b}.norm1", blk["norm1"])
+        _dense(sd, f"{b}.attn.qkv", blk["qkv"])
+        _dense(sd, f"{b}.attn.proj", blk["proj"])
+        _norm(sd, f"{b}.norm2", blk["norm2"])
+        _dense(sd, f"{b}.mlp.fc1", blk["mlp1"])
+        _dense(sd, f"{b}.mlp.fc2", blk["mlp2"])
+        i += 1
+    _norm(sd, "norm", p["norm"])
+    _dense(sd, "head", p["head"])
+    return sd

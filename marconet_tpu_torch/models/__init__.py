@@ -1,2 +1,2 @@
-"""The three core networks and the restore pipeline (counterpart of
-``marconet_tpu.models``)."""
+"""The three core networks, the restore pipeline and the YOLO11 +
+ConvNeXt-ViT front-end (counterpart of ``marconet_tpu.models``)."""

@@ -7,7 +7,10 @@ cv2, so the resizes are written here in numpy:
 
 * :func:`resize_cubic_u8` is OpenCV's own ``INTER_CUBIC`` for uint8
   images (``cv::resize`` without a vendor HAL), to the byte;
-* :func:`resize_linear` is its ``INTER_LINEAR`` for float images.
+* :func:`resize_linear` is its ``INTER_LINEAR`` for float images, and
+  :func:`resize_linear_u8` for uint8 ones;
+* :func:`gaussian_blur_u8` is its ``GaussianBlur`` (sigma 0) for uint8
+  images.
 
 The SSIM's Gaussian window is applied as a separable sum over the valid
 region, which is all the metric keeps of cv2's ``filter2D``.
@@ -126,6 +129,91 @@ def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     y0, y1, b0, b1 = _linear_taps(out_h, h)
     return row[y0] * b0[:, None, None].astype(dt) \
         + row[y1] * b1[:, None, None].astype(dt)
+
+
+def _linear_coeffs_u8(n_out: int, n_in: int, clamp: bool):
+    """Source indices and 11-bit weights of one axis of OpenCV's uint8
+    ``INTER_LINEAR``. Columns outside the source take the edge pixel
+    with weight 2048 (``clamp``); rows keep their fractional weight over
+    the edge row taken twice, as ``cv::resize`` does."""
+    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        left, right = s < 0, s >= n_in - 1
+        f[left], s[left] = 0.0, 0
+        f[right], s[right] = 0.0, n_in - 1
+    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE))
+    w1 = np.rint(f * np.float32(_COEF_SCALE))
+    return (np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1),
+            w0.astype(np.int64), w1.astype(np.int64))
+
+
+def resize_linear_u8(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
+    for an (H, W, C) uint8 image, to the byte (``cv::resize`` without a
+    vendor HAL): 11-bit weights, an exact integer horizontal pass, and the
+    vertical pass of OpenCV's SIMD code, ``((b0 * (r0 >> 4)) >> 16) +
+    ((b1 * (r1 >> 4)) >> 16)`` rounded by ``(v + 2) >> 2``."""
+    h, w = img.shape[:2]
+    c = img.reshape(h, w, -1).shape[2]
+    x0, x1, a0, a1 = _linear_coeffs_u8(out_w, w, clamp=True)
+    y0, y1, b0, b1 = _linear_coeffs_u8(out_h, h, clamp=False)
+    src = img.reshape(h, w, c).astype(np.int64)
+    rows = (src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+            ).reshape(h, out_w * c)
+    v = (((b0[:, None] * (rows[y0] >> 4)) >> 16)
+         + ((b1[:, None] * (rows[y1] >> 4)) >> 16) + 2) >> 2
+    out = np.clip(v, 0, 255).astype(np.uint8)
+    return out.reshape((out_h, out_w) + img.shape[2:])
+
+
+def _reflect101(n: int, pad: int) -> np.ndarray:
+    """Source index of each of ``n + 2 * pad`` positions under OpenCV's
+    ``BORDER_REFLECT_101`` (``borderInterpolate``), folding repeatedly."""
+    out = []
+    for p in range(-pad, n + pad):
+        while n > 1 and not 0 <= p < n:
+            p = -p if p < 0 else 2 * n - p - 2
+        out.append(p if n > 1 else 0)
+    return np.asarray(out)
+
+
+def _gaussian_kernel_u8(ksize: int) -> np.ndarray:
+    """OpenCV's Gaussian kernel for ``sigma=0`` on uint8 images: the
+    bit-exact float kernel (``sigma = 0.15 * ksize + 0.35``) in 8-bit
+    fixed point, rounded with error diffusion from the tails in, the
+    centre taking what makes the sum 256."""
+    sigma = ksize * 0.15 + 0.35
+    half = (ksize - 1) // 2
+    vals = [np.exp(float(x * x) * (-0.125 / (sigma * sigma)))
+            for x in range(1 - ksize, 1 - ksize + 2 * half, 2)]
+    norm = 1.0 / (2.0 * sum(vals) + 1.0)
+    k = np.zeros(ksize, np.int64)
+    err = 0.0
+    for i in range(half):
+        adj = vals[i] * norm * 256.0 + err
+        k[i] = k[ksize - 1 - i] = int(np.rint(adj))
+        err = adj - k[i]
+    k[half] = 256 - 2 * int(k[:half].sum())
+    return k
+
+
+def gaussian_blur_u8(img: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (ksize, ksize), 0)`` for a 2-D uint8 image,
+    to the byte: OpenCV's fixed-point path (8-bit kernel, integer row and
+    column sums, rounded once), border ``BORDER_REFLECT_101``. ``ksize``
+    is odd and at least 9 (below that OpenCV takes fixed tables)."""
+    if ksize < 9 or ksize % 2 == 0:
+        raise ValueError(f"ksize must be odd and >= 9, got {ksize}")
+    h, w = img.shape
+    k = _gaussian_kernel_u8(ksize)
+    r = ksize // 2
+    src = img.astype(np.int64)
+    xi, yi = _reflect101(w, r), _reflect101(h, r)
+    rows = sum(src[:, xi[j:j + w]] * k[j] for j in range(ksize))
+    cols = sum(rows[yi[j:j + h]] * k[j] for j in range(ksize))
+    return np.clip((cols + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
 
 
 def preprocess_line(img_rgb: np.ndarray):

@@ -1,6 +1,6 @@
 """Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
 without JAX, cv2 or PIL, so no module of it (nor ``chip_smoke.py``) may
-import ``jax``, ``flax``, ``optax``, ``cv2`` or ``PIL``, or any
+import ``jax``, ``flax``, ``optax``, ``cv2``, ``PIL`` or ``imageio``, or any
 ``marconet_tpu`` module (the port keeps its own copies of the
 framework-free ``alphabet`` and ``version``). Checked on the source
 (AST), for every module, and in a fresh interpreter."""
@@ -11,7 +11,8 @@ import pathlib
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "marconet_tpu_torch"
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL",
+                   "imageio"}
 ALLOWED_JAX_PKG: set = set()
 MODULES = sorted(PKG.rglob("*.py"))
 
@@ -36,7 +37,29 @@ def test_package_has_modules():
             "train/train_step.py", "train/losses.py", "train/lpips.py",
             "train/discriminators.py", "train/checkpoint.py",
             "data/batch_prep.py", "ops/conv3x3.py", "serve.py",
-            "utils/image.py"} <= names
+            "utils/image.py", "utils/png.py", "models/yolo.py",
+            "models/convnext_ocr.py", "models/frontend.py",
+            "cli/__init__.py", "cli/common.py", "cli/test_sr.py",
+            "cli/test_w.py", "cli/serve_demo.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["common", "test_sr", "test_w",
+                                  "serve_demo"])
+def test_cli_reads_and_writes_without_cv2(name):
+    """The CLIs replace the JAX tools' cv2 reads and writes and imageio's
+    GIF with the port's PNG codec: neither they nor the modules they load
+    in a fresh interpreter import cv2, PIL or imageio."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            f"import marconet_tpu_torch.cli.{name}\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('cv2', 'PIL', 'imageio'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("path", MODULES,
