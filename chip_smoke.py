@@ -73,6 +73,20 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    segment); exact K1 / K2 launches per restore (19 / 2, no other kernel),
    every output decoded by ``read_png`` at its shape; prints
    ``serve_demo``'s warm lines/s.
+13. training driver: ``load_config("options/train.yml")`` (full width, 16
+   slots, batch 2) and ``train.loop.train`` with its spawned workers
+   synthesizing through the real degradations, batching and
+   ``prepare_train_batch`` (glyphs from the seeded stroke renderer of
+   ``SmokeSynthesizer``: no font pack or PIL-free TrueType renderer is in
+   the repository): 6 steps, then a resume from the newest checkpoint
+   (step 4) to step 8 with three steps profiled. Checks the exact kernel
+   launches of every step and every val pass, the event file (framing,
+   CRCs, loss / speed scalars, ``val/*`` grids and text), that
+   ``step_4.pt`` restores into a fresh trainer with equal tensors, and
+   that the resumed step, learning rates and Adam counts continue;
+   prints the loop's samples/s beside phase 10's, the queue wait a step,
+   the device's idle share over the profiled steps, one worker's host ms
+   a batch by stage and ``os.cpu_count()``.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -82,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -99,7 +114,15 @@ from marconet_tpu_torch import native
 from marconet_tpu_torch.cli import serve_demo as cli_serve_demo
 from marconet_tpu_torch.cli import test_sr as cli_test_sr
 from marconet_tpu_torch.cli import test_w as cli_test_w
+from marconet_tpu_torch.data import synth as synth_module
 from marconet_tpu_torch.data.batch_prep import prepare_train_batch
+from marconet_tpu_torch.data.synth import (
+    CHECK_NUM,
+    GT_H,
+    GT_W,
+    SynthConfig,
+    TextLineSynthesizer,
+)
 from marconet_tpu_torch.alphabet import alphabet
 from marconet_tpu_torch.models.convnext_ocr import ConvNextViT, OCRConfig
 from marconet_tpu_torch.models.frontend import (
@@ -131,11 +154,16 @@ from marconet_tpu_torch.ops.sft_writeback import (
 )
 from marconet_tpu_torch.serve import TextPageRestorer, _pack_uint8
 from marconet_tpu_torch.models.yolo import BatchNorm, YOLO11, nms_static
+from marconet_tpu_torch.train import checkpoint as ckpt
+from marconet_tpu_torch.train import events
+from marconet_tpu_torch.train.config import load_config
+from marconet_tpu_torch.train.loop import train
 from marconet_tpu_torch.train.train_step import (
     NETS,
     MARCONetTrainer,
     TrainBatch,
     TrainConfig,
+    lr_at,
 )
 from marconet_tpu_torch.utils.png import read_png, write_png
 
@@ -1411,7 +1439,7 @@ def phase_train_parity() -> None:
     _precision_report(gpu, cpu, start, arrays, cot_gpu.grads, cot_cpu.grads)
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str) -> tuple:
     """Full-width f32 training throughput at batch 2 x 16 slots."""
     dev = torch.device("cuda", 0)
     trainer = MARCONetTrainer(TrainConfig(), device=dev, seed=0,
@@ -1461,7 +1489,7 @@ def phase_train(smi: str) -> dict:
     say(f"[train] peak device memory {peak:.2f} GiB; last losses: " +
         ", ".join(f"{k} {float(v):.4g}" for k, v in metrics[-1].items()))
     _profile_step(trainer, batches[0])
-    return launches
+    return launches, TRAIN_BATCH * 1e3 / ms
 
 
 def _check_moved(params: dict, before: dict) -> None:
@@ -1816,6 +1844,351 @@ def phase_cli(smi: str, ckpt_dir: str, work: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the training driver: YAML config, data workers, loop, events, checkpoints
+# ---------------------------------------------------------------------------
+
+LOOP_CONFIG = "options/train.yml"
+LOOP_STEPS = 6            # train(max_steps=6), then resume (from step 4)
+LOOP_RESUME_STEPS = 8
+LOOP_PRINT, LOOP_VAL, LOOP_SAVE = 1, 2, 4
+LOOP_PROFILE = (1, 4)     # the resumed run's steps 6..8, relative [1, 4)
+LOOP_TAGS = ("losses/l_g_total", "speed/samples_per_sec",
+             "speed/data_wait_ms", "val/1_gt_sr_lq", "val/3_char_prior",
+             "val/1_pred_text")
+HOST_BATCHES = 3          # batches synthesized in this process, timed
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+class SmokeSynthesizer(TextLineSynthesizer):
+    """The port's synthesizer with seeded strokes for glyphs: the font
+    pack and a TrueType renderer without PIL are not in the repository.
+    ``render`` keeps the JAX package's contract (image, ink mask, text,
+    labels, per-character pixel columns), so the rest of ``sample`` --
+    the degradations, the LQ resize and padding, ``batch`` and
+    ``prepare_train_batch`` -- runs as in training. Module-level, so the
+    loop's spawned workers can unpickle it."""
+
+    def render(self, rng, bg_rgb, forced_text=None):
+        if forced_text is not None:
+            text = forced_text
+            labels = [alphabet().find(c) for c in text]
+        else:
+            text, labels = self.sample_text(rng)
+            tries = 0
+            while (not text or len(text) > CHECK_NUM) and tries < 10:
+                text, labels = self.sample_text(rng)
+                tries += 1
+        if not text:
+            return None
+        img = np.array(bg_rgb, np.float32, copy=True)
+        ink = np.zeros((GT_H, GT_W), np.float32)
+        x = int(rng.integers(0, 24))
+        char_locs = []
+        for _ in text:
+            w = int(rng.integers(40, 120))
+            if x + w > GT_W:
+                return None
+            top, bottom = int(rng.integers(8, 40)), int(rng.integers(88, 120))
+            for _ in range(int(rng.integers(2, 6))):
+                if rng.random() < 0.5:
+                    c0 = x + int(rng.integers(0, w - 8))
+                    ink[top:bottom, c0:c0 + int(rng.integers(4, 10))] = 1.0
+                else:
+                    r0 = int(rng.integers(top, bottom - 6))
+                    ink[r0:r0 + int(rng.integers(3, 8)), x:x + w] = 1.0
+            char_locs += [x, x + w - 1]
+            x += w + int(rng.integers(4, 24))
+        max_width = max(char_locs)
+        char_locs += [GT_W, GT_W] * (CHECK_NUM - len(text))
+        img[ink > 0] = rng.uniform(0.0, 1.0, 3).astype(np.float32)
+        mask = np.repeat(ink[:, :, None], 3, axis=2)
+        offset_w = min(max_width + int(rng.integers(0, 17)), GT_W) // 4 * 4
+        return img[:, :offset_w], mask[:, :offset_w], text, labels, char_locs
+
+
+@contextlib.contextmanager
+def _launches_per_call(log: list):
+    """Record the kernel launches of every ``train_step`` and
+    ``visual_forward`` call (host counters, read as each call returns)."""
+    saved = {"step": MARCONetTrainer.train_step,
+             "val": MARCONetTrainer.visual_forward}
+
+    def counted(kind, fn):
+        def call(self, *args, **kwargs):
+            before = _counts()
+            out = fn(self, *args, **kwargs)
+            log.append((kind, {k: v - before[k]
+                               for k, v in _counts().items()}))
+            return out
+        return call
+
+    MARCONetTrainer.train_step = counted("step", saved["step"])
+    MARCONetTrainer.visual_forward = counted("val", saved["val"])
+    try:
+        yield
+    finally:
+        MARCONetTrainer.train_step = saved["step"]
+        MARCONetTrainer.visual_forward = saved["val"]
+
+
+def _host_batch_ms() -> dict:
+    """One worker's host milliseconds a batch, in this process: the
+    degradations, the LQ resize and padding, ``prepare_train_batch``, the
+    stroke renderer and the rest (background, jitter, stacking)."""
+    synth = SmokeSynthesizer(SynthConfig())
+    spent = dict.fromkeys(("degradation", "resize/pad",
+                           "prepare_train_batch", "render"), 0.0)
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t
+            return out
+        return call
+
+    synth.degrade = timed("degradation", synth.degrade)
+    synth.fit = timed("resize/pad", synth.fit)
+    synth.render = timed("render", synth.render)
+    prep = synth_module.prepare_train_batch
+    synth_module.prepare_train_batch = timed("prepare_train_batch", prep)
+    rng = np.random.default_rng(7)
+    try:
+        t = time.perf_counter()
+        for _ in range(HOST_BATCHES):
+            synth.batch(TRAIN_BATCH, rng)
+        total = time.perf_counter() - t
+    finally:
+        synth_module.prepare_train_batch = prep
+    out = {k: v * 1e3 / HOST_BATCHES for k, v in spent.items()}
+    out["other"] = total * 1e3 / HOST_BATCHES - sum(out.values())
+    out["total"] = total * 1e3 / HOST_BATCHES
+    return out
+
+
+def _trace_idle(path: str) -> dict:
+    """Window, device busy time (the union of kernels, copies and sets)
+    and the marked host spans of a ``torch.profiler`` chrome trace, ms."""
+    with open(path) as f:
+        trace = json.load(f)
+    spans = [e for e in trace["traceEvents"]
+             if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in spans)
+    end = max(e["ts"] + e["dur"] for e in spans)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                    if e.get("cat") in DEVICE_CATS
+                    and e.get("name") != _CUPTI_MARKER)
+    if not device:
+        raise AssertionError(f"{path}: no device activity in the trace")
+    busy, reach = 0.0, device[0][0]
+    for lo, hi in device:
+        busy += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    marks = {}
+    for e in spans:
+        if e.get("cat") == "user_annotation" and \
+                e["name"].startswith("train/"):
+            marks[e["name"]] = marks.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {"window": (end - start) / 1e3, "busy": busy / 1e3,
+            "marks": marks}
+
+
+def _check_loop_events(tb_dir: str, steps, val_steps) -> list:
+    """Every event file under ``tb_dir`` reads back with valid framing and
+    CRCs; the tags, loss steps and val steps are the expected ones.
+    Returns the events."""
+    files = events.event_files(tb_dir)
+    evs = [e for path in files for e in events.read_events(path)]
+    if sum("file_version" in e for e in evs) != len(files):
+        raise AssertionError(f"{tb_dir}: a file without its version record")
+    tags = {v[0] for e in evs for v in e["values"]}
+    missing = [t for t in LOOP_TAGS if t not in tags]
+    if missing:
+        raise AssertionError(f"{tb_dir}: no {missing} in {sorted(tags)}")
+    loss_steps = [s for s, _ in events.scalars(tb_dir, "losses/l_g_total")]
+    got_val = [e["step"] for e in evs for v in e["values"]
+               if v[0] == "val/1_pred_text"]
+    if loss_steps != list(steps) or got_val != list(val_steps):
+        raise AssertionError(f"loss steps {loss_steps}, val steps {got_val}"
+                             f"; expected {list(steps)}, {list(val_steps)}")
+    for e in evs:
+        for tag, kind, payload in e["values"]:
+            if kind == "image":
+                png, h, w = payload
+                if not png.startswith(b"\x89PNG") or h < 128 or w < 128:
+                    raise AssertionError(f"{tag}: {h} x {w} image")
+            if kind == "scalar" and not math.isfinite(payload):
+                raise AssertionError(f"{tag} = {payload}")
+    return evs
+
+
+def _check_restore(ckpt_dir: str, step: int, config) -> None:
+    """``step_<step>.pt`` restores into a fresh trainer with every tensor
+    equal to the file's."""
+    fresh = MARCONetTrainer(config.train, device="cuda", seed=1,
+                            allow_random_lpips=True)
+    ckpt.restore_state(ckpt_dir, fresh, step=step)
+    saved = torch.load(os.path.join(ckpt_dir, f"step_{step}.pt"),
+                       map_location="cuda", weights_only=True)
+    got = fresh.state_dict()
+    n = 0
+    for name in NETS:
+        for k, v in saved["nets"][name].items():
+            if not torch.equal(got["nets"][name][k], v):
+                raise AssertionError(f"restored {name}.{k} differs")
+            n += 1
+        for idx, state in saved["optimizers"][name]["state"].items():
+            for k, v in state.items():
+                if not torch.equal(got["optimizers"][name]["state"][idx][k],
+                                   v):
+                    raise AssertionError(f"restored {name} Adam {idx}.{k}")
+                n += 1
+    if fresh.step != step or saved["step"] != step:
+        raise AssertionError(f"restored step {fresh.step}, expected {step}")
+    say(f"[loop] step_{step}.pt restores into a fresh trainer: {n} tensors "
+        "equal")
+    del fresh, saved, got
+    torch.cuda.empty_cache()
+
+
+def phase_loop(smi: str, bare_samples_per_s: float) -> dict:
+    """The training driver at ``options/train.yml``'s full width (batch 2,
+    16 slots) through the entry points a user calls: ``load_config``,
+    ``train(max_steps=6)`` with the smoke's renderer in the config's
+    spawned workers, then a resume from the newest checkpoint to step 8
+    with three steps profiled. Exact launches per step and per val pass,
+    the event file, checkpoint restore and the resumed step and rates;
+    prints the loop's samples/s beside phase 10's bare steps, one
+    worker's host ms a batch, the queue wait a step and the device's
+    idle share."""
+    config = load_config(LOOP_CONFIG)
+    t, loop = config.train, config.loop
+    if (t.width, t.max_chars, loop.batch_size) != (1.0, 16, TRAIN_BATCH):
+        raise AssertionError(f"{LOOP_CONFIG}: width {t.width}, slots "
+                             f"{t.max_chars}, batch {loop.batch_size}")
+    with tempfile.TemporaryDirectory(prefix="loop_") as work:
+        return _run_loop(smi, bare_samples_per_s, config, work)
+
+
+def _run_loop(smi: str, bare_samples_per_s: float, config, work: str
+              ) -> dict:
+    t, loop = config.train, config.loop
+    loop.experiments_root = work
+    loop.print_freq, loop.val_freq, loop.save_freq = \
+        LOOP_PRINT, LOOP_VAL, LOOP_SAVE
+    loop.allow_random_lpips = True
+    factory = functools.partial(SmokeSynthesizer, SynthConfig())
+    run_dir = os.path.join(work, loop.name)
+    tb_dir, ckpt_dir = (os.path.join(run_dir, "tb"),
+                        os.path.join(run_dir, "checkpoints"))
+    profile_dir = os.path.join(work, "profile")
+    say(f"[loop] {LOOP_CONFIG}: width {t.width}, {t.max_chars} slots, batch "
+        f"{loop.batch_size}, {loop.num_workers} spawned workers; "
+        f"os.cpu_count() {os.cpu_count()}")
+    calls: list = []
+    _reset_counts()
+    try:
+        with _launches_per_call(calls):
+            t0 = time.perf_counter()
+            trainer = train(config, max_steps=LOOP_STEPS,
+                            synth_factory=factory)
+            first_s = time.perf_counter() - t0
+            if trainer.step != LOOP_STEPS:
+                raise AssertionError(f"step {trainer.step}")
+            del trainer
+            torch.cuda.empty_cache()
+            first = _check_loop_events(tb_dir, range(1, LOOP_STEPS + 1),
+                                       range(LOOP_VAL, LOOP_STEPS + 1,
+                                             LOOP_VAL))
+            saved = ckpt.latest_step(ckpt_dir)
+            if saved != LOOP_SAVE:
+                raise AssertionError(f"newest checkpoint {saved}")
+            _check_restore(ckpt_dir, saved, config)
+
+            loop.resume_state = ckpt_dir
+            os.environ["MARCONET_PROFILE"] = profile_dir
+            t0 = time.perf_counter()
+            trainer = train(config, max_steps=LOOP_RESUME_STEPS,
+                            synth_factory=factory,
+                            profile_steps=LOOP_PROFILE)
+            resume_s = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.environ.pop("MARCONET_PROFILE", None)
+
+    # launches: every step and every val pass exactly, and in sum
+    steps = [c for kind, c in calls if kind == "step"]
+    vals = [c for kind, c in calls if kind == "val"]
+    n_steps = LOOP_STEPS + LOOP_RESUME_STEPS - saved
+    n_vals = LOOP_STEPS // LOOP_VAL + (LOOP_RESUME_STEPS - saved) // LOOP_VAL
+    if len(steps) != n_steps or len(vals) != n_vals:
+        raise AssertionError(f"{len(steps)} steps and {len(vals)} val "
+                             f"passes, expected {n_steps} and {n_vals}")
+    for kind, got in calls:
+        want = TRAIN_LAUNCHES if kind == "step" else RESTORE_LAUNCHES
+        if got != want:
+            raise AssertionError(f"a {kind} call launched {got}, expected "
+                                 f"{want}")
+    _check_counts("loop", launches,
+                  {k: n_steps * TRAIN_LAUNCHES[k] + n_vals * v
+                   for k, v in RESTORE_LAUNCHES.items()},
+                  f"{n_steps} loop steps and {n_vals} val passes")
+
+    # the resumed run: step, learning rates and Adam's count continue
+    if trainer.step != LOOP_RESUME_STEPS:
+        raise AssertionError(f"resumed to step {trainer.step}")
+    for name, opt in trainer.optimizers.items():
+        want = lr_at(trainer.base_lr[name], LOOP_RESUME_STEPS - 1,
+                     t.milestones, t.lr_gamma)
+        counts = {float(s["step"]) for s in opt.state.values()}
+        if [g["lr"] for g in opt.param_groups] != [want] or \
+                counts != {float(LOOP_RESUME_STEPS)}:
+            raise AssertionError(f"{name}: lr {opt.param_groups[0]['lr']} "
+                                 f"(expected {want}), Adam steps {counts}")
+    del trainer
+    torch.cuda.empty_cache()
+    evs = _check_loop_events(
+        tb_dir, list(range(1, LOOP_STEPS + 1))
+        + list(range(saved + 1, LOOP_RESUME_STEPS + 1)),
+        list(range(LOOP_VAL, LOOP_STEPS + 1, LOOP_VAL))
+        + list(range(saved + LOOP_VAL, LOOP_RESUME_STEPS + 1, LOOP_VAL)))
+    say(f"[loop] train() to step {LOOP_STEPS} in {first_s:.1f} s, resumed "
+        f"from step {saved} to {LOOP_RESUME_STEPS} in {resume_s:.1f} s; "
+        f"{len(evs)} events ({len(first)} in the first run's file), "
+        "CRCs valid; learning rates and Adam step counts continue")
+    say(f"[loop] launches per step {steps[0]}, per val pass {vals[0]} "
+        f"(every one of {n_steps} steps and {n_vals} val passes)")
+
+    # speed: the first run's steps whose interval holds no val or save
+    rate = dict(events.scalars(tb_dir, "speed/samples_per_sec")[
+        :LOOP_STEPS])
+    wait = dict(events.scalars(tb_dir, "speed/data_wait_ms")[:LOOP_STEPS])
+    steady = [s for s in range(2, LOOP_STEPS + 1)
+              if (s - 1) % LOOP_VAL and (s - 1) % LOOP_SAVE]
+    loop_rate = len(steady) / sum(1.0 / rate[s] for s in steady)
+    say(f"[loop] samples/s over steps {steady}: {loop_rate:.3f} (each "
+        + ", ".join(f"{rate[s]:.3f}" for s in steady)
+        + f"); phase 10's bare train_step {bare_samples_per_s:.3f}; on "
+        f"{smi}")
+    say("[loop] queue wait ms a step: " + ", ".join(
+        f"step {s} {w:.1f}" for s, w in sorted(wait.items())))
+    traces = sorted(os.listdir(profile_dir))
+    idle = _trace_idle(os.path.join(profile_dir, traces[0]))
+    say(f"[loop] profile of the resumed run's steps "
+        f"{saved + LOOP_PROFILE[0] + 1}-{saved + LOOP_PROFILE[1]} "
+        f"({traces[0]}): device busy {idle['busy']:.2f} ms of a "
+        f"{idle['window']:.2f} ms window, idle share "
+        f"{100 * (1 - idle['busy'] / idle['window']):.2f}%; host spans "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+            idle["marks"].items())))
+    host = _host_batch_ms()
+    say(f"[loop] one worker's host ms a batch of {TRAIN_BATCH} (this "
+        f"process, {HOST_BATCHES} batches): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in host.items()))
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1827,17 +2200,20 @@ def main() -> None:
     page = phase_page(smi)
     phase_interpolate()
     phase_train_parity()
-    train = phase_train(smi)
+    train_launches, bare_rate = phase_train(smi)
     with tempfile.TemporaryDirectory() as work:
         ckpt_dir = os.path.join(work, "checkpoints")
         os.makedirs(ckpt_dir)
         phase_frontend(smi, ckpt_dir)
         cli = phase_cli(smi, ckpt_dir, work)
+    say(f"[smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s")
+    loop = phase_loop(smi, bare_rate)
     kernels = [dict(name=name, **KERNELS[name],
                     launches=k3[name] + serve[name] + page[name]
-                    + train[name] + cli[name], **report[name])
+                    + train_launches[name] + cli[name] + loop[name],
+                    **report[name])
                for name in KERNELS]
-    say(f"[smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s")
+    say(f"[smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

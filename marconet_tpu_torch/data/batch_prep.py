@@ -7,8 +7,8 @@ inside its training loop with python loops (``tspgan_model.py:425-439,
 ``mask``, ``label``), so it is computed here on the host with numpy: each
 sample gets fixed-shape crop indices / weights and glyph canvases, and the
 device step has static shapes. The card's machine has no cv2, so the one
-``cv2.resize(..., INTER_LINEAR)`` of the JAX package is reproduced in
-numpy (:func:`resize_width_linear`).
+``cv2.resize(..., INTER_LINEAR)`` of the JAX package is the port's numpy
+``utils/image.resize`` (:func:`resize_width_linear`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 
 from marconet_tpu_torch.alphabet import BLANK_INDEX
+from marconet_tpu_torch.utils.image import INTER_LINEAR, resize
 
 GT_HEIGHT = 128
 CHAR_SIZE = 128
@@ -45,28 +46,9 @@ def _crop_taps(center: int, half: int = 64, width: int = 2048):
 
 def resize_width_linear(img: np.ndarray, out_w: int) -> np.ndarray:
     """Resize an (H, W, C) f32 image to (H, out_w, C) as OpenCV's
-    ``cv2.resize(img, (out_w, H), interpolation=cv2.INTER_LINEAR)`` does.
-
-    Half-pixel source coordinates ``(x + 0.5) * W / out_w - 0.5``, no
-    antialiasing; a coordinate left of 0 takes column 0 and one at or past
-    the last column takes the last column, each with weight 1. Rows keep
-    their place (the height is unchanged, so OpenCV's vertical pass
-    copies them).
-    """
-    w = img.shape[1]
-    scale = w / out_w
-    fx = ((np.arange(out_w) + 0.5) * scale - 0.5).astype(np.float32)
-    sx = np.floor(fx).astype(np.int64)
-    fx = fx - sx.astype(np.float32)
-    left = sx < 0
-    fx[left], sx[left] = 0.0, 0
-    right = sx >= w - 1
-    fx[right], sx[right] = 0.0, w - 1
-    sx1 = np.minimum(sx + 1, w - 1)
-    a = img[:, sx].astype(np.float32)
-    b = img[:, sx1].astype(np.float32)
-    f = fx[None, :, None]
-    return a * (np.float32(1.0) - f) + b * f
+    ``cv2.resize(img, (out_w, H), interpolation=cv2.INTER_LINEAR)`` does
+    (:func:`marconet_tpu_torch.utils.image.resize`)."""
+    return resize(img, (out_w, img.shape[0]), INTER_LINEAR)
 
 
 def glyph_canvas(ink_mask: np.ndarray, l_px: int, r_px: int) -> np.ndarray:

@@ -139,6 +139,11 @@ def load_lpips(module: LPIPS, ckpt_dir: Optional[str]):
     return module
 
 
+class MissingLpipsWeights(ValueError):
+    """The pretrained LPIPS weights are absent and a random VGG was not
+    allowed."""
+
+
 def check_lpips_weights(loaded: bool, allow_random: bool) -> None:
     """Refuse a random-VGG perceptual loss unless explicitly allowed
     (the JAX package's ``train/loop.py:150-165``)."""
@@ -146,9 +151,9 @@ def check_lpips_weights(loaded: bool, allow_random: bool) -> None:
         return
     msg = ("LPIPS weights (vgg16-397923af.pth + lpips_vgg.pth) not found")
     if not allow_random:
-        raise ValueError(msg + ": refusing to train with a random-VGG "
-                         "perceptual loss. Provide the weights or pass "
-                         "allow_random_lpips=True.")
+        raise MissingLpipsWeights(
+            msg + ": refusing to train with a random-VGG perceptual loss. "
+            "Provide the weights or pass allow_random_lpips=True.")
     print(f"WARNING: {msg}; TRAINING WITH RANDOM VGG WEIGHTS "
           "(allow_random_lpips set)", flush=True)
 

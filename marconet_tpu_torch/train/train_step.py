@@ -101,9 +101,19 @@ class TrainBatch(NamedTuple):
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray],
                    device) -> "TrainBatch":
-        """The batch of ``prepare_train_batch`` on ``device``."""
-        return cls(**{name: torch.from_numpy(np.asarray(arrays[name]))
-                      .to(device) for name in cls._fields})
+        """The batch of ``prepare_train_batch`` on ``device``; to a CUDA
+        device through pinned host memory, with copies that do not block
+        the host (they are ordered before the step's kernels on the
+        stream)."""
+        cuda = torch.device(device).type == "cuda"
+
+        def move(a):
+            t = torch.from_numpy(np.asarray(a))
+            if cuda:
+                return t.pin_memory().to(device, non_blocking=True)
+            return t.to(device)
+
+        return cls(**{name: move(arrays[name]) for name in cls._fields})
 
 
 # Freeze group -> (net, frozen parameter-name prefixes): the JAX package's

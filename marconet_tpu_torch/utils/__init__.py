@@ -1,1 +1,2 @@
-"""Host-side helpers of the port."""
+"""Host-side helpers of the port: image resizes and filters, a PNG codec,
+a YAML subset reader."""

@@ -10,7 +10,12 @@ cv2, so the resizes are written here in numpy:
 * :func:`resize_linear` is its ``INTER_LINEAR`` for float images, and
   :func:`resize_linear_u8` for uint8 ones;
 * :func:`gaussian_blur_u8` is its ``GaussianBlur`` (sigma 0) for uint8
-  images.
+  images;
+* :func:`resize` is ``cv::resize`` for float images in its four
+  interpolations (``INTER_LINEAR``, ``INTER_CUBIC``, ``INTER_AREA``,
+  ``INTER_LANCZOS4``, keyed by OpenCV's integer codes so that the data
+  path draws the same codes from the same lists as the JAX package), and
+  :func:`filter2d` its ``filter2D`` with ``BORDER_REFLECT_101``.
 
 The SSIM's Gaussian window is applied as a separable sum over the valid
 region, which is all the metric keeps of cv2's ``filter2D``.
@@ -18,9 +23,11 @@ region, which is all the metric keeps of cv2's ``filter2D``.
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Sequence, Tuple
 
 import numpy as np
+from scipy import signal
 
 LQ_HEIGHT = 32
 LQ_WIDTH = 512
@@ -105,30 +112,10 @@ def resize_cubic_u8(img: np.ndarray, factor: float) -> np.ndarray:
     return out.reshape((out_h, out_w) + img.shape[2:])
 
 
-def _linear_taps(n_out: int, n_in: int):
-    scale = 1.0 / (n_out / n_in)
-    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = f - s.astype(np.float32)
-    left, right = s < 0, s >= n_in - 1
-    f[left], s[left] = 0.0, 0
-    f[right], s[right] = 0.0, n_in - 1
-    return s, np.minimum(s + 1, n_in - 1), np.float32(1) - f, f
-
-
 def resize_linear(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h))`` (``INTER_LINEAR``) for an
-    (H, W, C) float image: half-pixel coordinates, f32 weights, each edge
-    clamped with weight 1, horizontal pass then vertical, in the image's
-    own float type."""
-    h, w = img.shape[:2]
-    dt = img.dtype
-    x0, x1, a0, a1 = _linear_taps(out_w, w)
-    row = img[:, x0] * a0[None, :, None].astype(dt) \
-        + img[:, x1] * a1[None, :, None].astype(dt)
-    y0, y1, b0, b1 = _linear_taps(out_h, h)
-    return row[y0] * b0[:, None, None].astype(dt) \
-        + row[y1] * b1[:, None, None].astype(dt)
+    (H, W, C) float image (:func:`resize`)."""
+    return resize(img, (out_w, out_h), INTER_LINEAR)
 
 
 def _linear_coeffs_u8(n_out: int, n_in: int, clamp: bool):
@@ -214,6 +201,234 @@ def gaussian_blur_u8(img: np.ndarray, ksize: int) -> np.ndarray:
     rows = sum(src[:, xi[j:j + w]] * k[j] for j in range(ksize))
     cols = sum(rows[yi[j:j + h]] * k[j] for j in range(ksize))
     return np.clip((cols + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
+
+
+# OpenCV's interpolation codes (``cv2.INTER_*``)
+INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4 = 1, 2, 3, 4
+_LANCZOS_CS = ((1, 0), (-math.sqrt(0.5), -math.sqrt(0.5)), (0, 1),
+               (math.sqrt(0.5), -math.sqrt(0.5)), (-1, 0),
+               (math.sqrt(0.5), math.sqrt(0.5)), (0, -1),
+               (-math.sqrt(0.5), math.sqrt(0.5)))
+
+
+def _lanczos4_coeffs(fx: np.ndarray) -> np.ndarray:
+    """OpenCV's ``interpolateLanczos4``: (n,) f32 -> (n, 8) f32 weights of
+    the taps at ``sx - 3 .. sx + 4``, normalised by their f32 sum."""
+    x3 = fx.astype(np.float32) + np.float32(3)
+    y0 = -x3.astype(np.float64) * math.pi * 0.25
+    s0, c0 = np.sin(y0), np.cos(y0)
+    out = np.empty((len(fx), 8), np.float32)
+    total = np.zeros(len(fx), np.float32)
+    for i, (cs, cc) in enumerate(_LANCZOS_CS):
+        arg = x3 - np.float32(i)
+        y = -arg.astype(np.float64) * math.pi * 0.25
+        with np.errstate(divide="ignore", invalid="ignore"):
+            coef = ((cs * s0 + cc * c0) / (y * y)).astype(np.float32)
+        out[:, i] = np.where(np.abs(arg) >= np.float32(1e-6), coef,
+                             np.float32(1e30))
+        total = total + out[:, i]
+    return out * (np.float32(1) / total)[:, None]
+
+
+def _interp_taps(n_out: int, n_in: int, mode: int, clamp_edges: bool):
+    """Source indices (n_out, K), clipped to the image, and f32 weights
+    (n_out, K) of one axis of ``cv::resize``'s separable path
+    (``resizeGeneric``). ``INTER_AREA`` here is its upscaling form, a
+    bilinear with OpenCV's clipped fractions. ``clamp_edges``: the
+    horizontal axis, where OpenCV pins a linear tap that leaves the image
+    to the edge pixel with weight 1 (the vertical axis keeps the weights
+    and clips the rows)."""
+    inv_scale = n_out / n_in
+    scale = 1.0 / inv_scale
+    d = np.arange(n_out, dtype=np.float64)
+    if mode == INTER_AREA:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv_scale).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(
+            np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = (f - s.astype(np.float32)).astype(np.float32)
+    if mode in (INTER_LINEAR, INTER_AREA):
+        if clamp_edges:
+            left, right = s < 0, s >= n_in - 1
+            f[left], s[left] = 0.0, 0
+            f[right], s[right] = 0.0, n_in - 1
+        w = np.stack([np.float32(1) - f, f], axis=-1)
+    elif mode == INTER_CUBIC:
+        w = _cubic_coeffs(f)
+    elif mode == INTER_LANCZOS4:
+        w = _lanczos4_coeffs(f)
+    else:
+        raise ValueError(f"unsupported interpolation {mode}")
+    k = w.shape[1]
+    idx = np.clip(s[:, None] + np.arange(k)[None, :] - (k // 2 - 1),
+                  0, n_in - 1)
+    return idx, w.astype(np.float32)
+
+
+def _area_taps(n_out: int, n_in: int):
+    """OpenCV's ``computeResizeAreaTab`` for a fractional downscale, as
+    (n_out, K) source indices and f32 weights (unused taps weigh 0)."""
+    scale = n_in / n_out
+    rows = []
+    for dx in range(n_out):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, n_in - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, n_in - 1)
+        sx1 = min(sx1, sx2)
+        taps = []
+        if sx1 - fsx1 > 1e-3:
+            taps.append((sx1 - 1, (sx1 - fsx1) / cell))
+        taps += [(sx, 1.0 / cell) for sx in range(sx1, sx2)]
+        if fsx2 - sx2 > 1e-3:
+            taps.append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((n_out, k), np.int64)
+    w = np.zeros((n_out, k), np.float32)
+    for dx, taps in enumerate(rows):
+        for j, (sx, a) in enumerate(taps):
+            idx[dx, j], w[dx, j] = sx, np.float32(a)
+    return idx, w
+
+
+def _apply_taps(img: np.ndarray, idx: np.ndarray, w: np.ndarray,
+                axis: int, nested: bool = False) -> np.ndarray:
+    """sum_k w[:, k] * img[idx[:, k]] along ``axis`` (0 or 1) in the
+    image's float type, in OpenCV's order: taps added left to right, or,
+    with ``nested`` (the vertical cubic and Lanczos passes), as its
+    4-lane SIMD code adds them, ``w0 x0 + (w1 x1 + (... + w7 x7))``, for
+    all but the last ``n % 4`` values of each row."""
+    shape = [1] * img.ndim
+    shape[axis] = len(idx)
+    terms = [np.take(img, idx[:, k], axis=axis)
+             * w[:, k].astype(img.dtype).reshape(shape)
+             for k in range(idx.shape[1])]
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
+    if nested:
+        rows = [t.reshape(t.shape[0], -1) for t in terms]
+        n4 = rows[0].shape[1] // 4 * 4
+        acc = rows[-1][:, :n4]
+        for row in rows[-2::-1]:
+            acc = row[:, :n4] + acc
+        out.reshape(out.shape[0], -1)[:, :n4] = acc
+    return out
+
+
+def _area_fast(img: np.ndarray, out_w: int, out_h: int, ix: int,
+               iy: int) -> np.ndarray:
+    """The mean of whole ``iy`` x ``ix`` blocks, summed as OpenCV's
+    ``resizeAreaFast`` does: block pixels in raster order, four at a time
+    (``sum += a + b + c + d``), times ``1 / area`` in f32; for one channel
+    and 2 x 2 blocks its 4-lane SIMD code, ``(a + b + (c + d)) / 4``,
+    on all but the last ``out_w % 4`` values of each row."""
+    blocks = img.reshape((out_h, iy, out_w, ix) + img.shape[2:])
+    parts = [blocks[:, sy, :, sx] for sy in range(iy) for sx in range(ix)]
+    total = None
+    k = 0
+    while k <= len(parts) - 4:
+        group = parts[k] + parts[k + 1] + parts[k + 2] + parts[k + 3]
+        total = group if total is None else total + group
+        k += 4
+    for part in parts[k:]:
+        total = part if total is None else total + part
+    scale = img.dtype.type(1.0 / (ix * iy))
+    out = total * scale
+    if ix == iy == 2 and (img.ndim == 2 or img.shape[2] == 1):
+        n4 = out_w // 4 * 4
+        a, b, c, d = (p[:, :n4] for p in parts)
+        out[:, :n4] = ((a + b) + (c + d)) * scale
+    return out
+
+
+def resize(img: np.ndarray, size: Tuple[int, int], mode: int
+           ) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=mode)`` for an (H, W) or
+    (H, W, C) float32 / float64 image (no vendor HAL).
+
+    ``size`` is (width, height), ``mode`` an OpenCV code: ``INTER_LINEAR``
+    (1), ``INTER_CUBIC`` (2, A = -0.75), ``INTER_AREA`` (3) or
+    ``INTER_LANCZOS4`` (4, 8 taps). Half-pixel centres; taps beyond the
+    image repeat its edge. As ``cv::resize``: an unchanged size copies; a
+    linear halving of both sides is an area mean; ``INTER_AREA`` takes
+    the mean of whole blocks when both scales are integers, OpenCV's
+    area tables when both shrink, and otherwise a bilinear with clipped
+    fractions. Horizontal pass first, then vertical, in the image's type.
+    An empty image or size raises ``ValueError``, as cv2 does.
+    """
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if h <= 0 or w <= 0 or out_w <= 0 or out_h <= 0:
+        raise ValueError(f"resize of a {img.shape} image to {size}")
+    if img.dtype not in (np.float32, np.float64):
+        raise ValueError(f"resize takes float images, got {img.dtype}")
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    scale_x, scale_y = 1.0 / (out_w / w), 1.0 / (out_h / h)
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    area_fast = (abs(scale_x - ix) < np.finfo(float).eps
+                 and abs(scale_y - iy) < np.finfo(float).eps)
+    if mode == INTER_LINEAR and area_fast and ix == 2 and iy == 2:
+        mode = INTER_AREA
+    if mode == INTER_AREA and scale_x >= 1 and scale_y >= 1:
+        if area_fast:
+            return _area_fast(img, out_w, out_h, ix, iy)
+        rows = _apply_taps(img, *_area_taps(out_w, w), axis=1)
+        return _apply_taps(rows, *_area_taps(out_h, h), axis=0)
+    rows = _apply_taps(img, *_interp_taps(out_w, w, mode, True), axis=1)
+    return _apply_taps(rows, *_interp_taps(out_h, h, mode, False), axis=0,
+                       nested=mode in (INTER_CUBIC, INTER_LANCZOS4))
+
+
+_DFT_FILTER_AREA = 130   # cv::filter2D correlates f32 by DFT from here
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel, borderType=cv2.BORDER_REFLECT_101)``
+    for an (H, W) or (H, W, C) float32 image and an odd (k, k) float32
+    kernel: a correlation (the kernel is not flipped) centred on each
+    pixel, the border mirrored without repeating the edge.
+
+    As OpenCV computes it: a kernel of 130 taps or more by FFT in float64
+    (``scipy.signal.fftconvolve`` of the flipped kernel; OpenCV's DFT
+    path also works in float64), a smaller one directly in float32, the
+    nonzero taps in raster order, each fused-multiply-added into the sum
+    (its 8-lane SIMD loop) except in the last ``n % 8`` values of a row,
+    where product and sum round apart (its scalar loop).
+    """
+    kh, kw = kernel.shape
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"filter2d takes an odd kernel, got {kernel.shape}")
+    h, w = img.shape[:2]
+    k32 = np.asarray(kernel, np.float32)
+    x = np.take(np.take(img.astype(np.float64), _reflect101(h, kh // 2),
+                        axis=0), _reflect101(w, kw // 2), axis=1)
+    if kh * kw >= _DFT_FILTER_AREA:
+        k = k32.astype(np.float64)[::-1, ::-1]
+        if img.ndim == 3:
+            k = k[:, :, None]
+        out = signal.fftconvolve(x, k, mode="valid", axes=(0, 1))
+        return out.astype(img.dtype)
+    x = x.reshape(x.shape[0], x.shape[1], -1)
+    c = x.shape[2]
+    n = w * c
+    n8 = n // 8 * 8
+    acc = np.zeros((h, n), np.float32)
+    prod = np.empty((h, n), np.float64)
+    head, tail = (slice(None), slice(0, n8)), (slice(None), slice(n8, n))
+    for i, j in zip(*np.nonzero(k32)):
+        np.multiply(x[i:i + h, j:j + w].reshape(h, n), np.float64(k32[i, j]),
+                    out=prod)
+        # exact product, one rounding of the sum: a fused multiply-add
+        np.add(acc[head], prod[head], out=acc[head], casting="unsafe")
+        acc[tail] += prod[tail].astype(np.float32)
+    return acc.reshape(img.shape)
 
 
 def preprocess_line(img_rgb: np.ndarray):

@@ -174,17 +174,23 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload)))
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 RGB image as an 8-bit RGB PNG."""
+def encode_png(rgb: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 RGB image as the bytes of an 8-bit RGB PNG."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got "
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got "
                          f"{rgb.shape} {rgb.dtype}")
     h, w = rgb.shape[:2]
     rows = np.zeros((h, 1 + 3 * w), np.uint8)     # filter byte 0: none
     rows[:, 1:] = rgb.reshape(h, 3 * w)
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB image as an 8-bit RGB PNG."""
+    data = encode_png(rgb)
     with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+        f.write(data)

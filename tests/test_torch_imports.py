@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
-without JAX, cv2 or PIL, so no module of it (nor ``chip_smoke.py``) may
-import ``jax``, ``flax``, ``optax``, ``cv2``, ``PIL`` or ``imageio``, or any
+without JAX, cv2, PIL, PyYAML or TensorBoard, so no module of it (nor
+``chip_smoke.py``) may import ``jax``, ``flax``, ``optax``, ``cv2``,
+``PIL``, ``imageio``, ``yaml``, ``tensorboard`` or ``tensorboardX``, or any
 ``marconet_tpu`` module (the port keeps its own copies of the
 framework-free ``alphabet`` and ``version``). Checked on the source
 (AST), for every module, and in a fresh interpreter."""
@@ -12,7 +13,7 @@ import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "marconet_tpu_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL",
-                   "imageio"}
+                   "imageio", "yaml", "tensorboard", "tensorboardX"}
 ALLOWED_JAX_PKG: set = set()
 MODULES = sorted(PKG.rglob("*.py"))
 
@@ -40,22 +41,32 @@ def test_package_has_modules():
             "utils/image.py", "utils/png.py", "models/yolo.py",
             "models/convnext_ocr.py", "models/frontend.py",
             "cli/__init__.py", "cli/common.py", "cli/test_sr.py",
-            "cli/test_w.py", "cli/serve_demo.py"} <= names
+            "cli/test_w.py", "cli/serve_demo.py", "utils/yaml_lite.py",
+            "data/imutils.py", "data/synth.py", "data/degrade/__init__.py",
+            "data/degrade/kernels.py", "data/degrade/noise.py",
+            "data/degrade/camera_isp.py", "data/degrade/diffjpeg.py",
+            "data/degrade/realesrgan.py", "data/degrade/bsrgan.py",
+            "train/config.py", "train/events.py", "train/visuals.py",
+            "train/loop.py", "cli/train.py"} <= names
 
 
 @pytest.mark.parametrize("name", ["common", "test_sr", "test_w",
-                                  "serve_demo"])
+                                  "serve_demo", "train"])
 def test_cli_reads_and_writes_without_cv2(name):
     """The CLIs replace the JAX tools' cv2 reads and writes and imageio's
-    GIF with the port's PNG codec: neither they nor the modules they load
-    in a fresh interpreter import cv2, PIL or imageio."""
+    GIF with the port's PNG codec (and ``train`` the YAML and TensorBoard
+    packages with the port's reader and writer): neither they nor the
+    modules they load in a fresh interpreter import cv2, PIL, imageio,
+    yaml or tensorboard."""
     import subprocess
     import sys
 
     code = ("import sys\n"
             f"import marconet_tpu_torch.cli.{name}\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('cv2', 'PIL', 'imageio'))\n"
+            "             if m.split('.')[0] in ('cv2', 'PIL', 'imageio',\n"
+            "                                    'yaml', 'tensorboard',\n"
+            "                                    'tensorboardX'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                           capture_output=True, text=True, timeout=300)
