@@ -87,6 +87,24 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    prints the loop's samples/s beside phase 10's, the queue wait a step,
    the device's idle share over the profiled steps, one worker's host ms
    a batch by stage and ``os.cpu_count()``.
+14. data-parallel training: (a) ``train.loop.train`` from
+   ``options/train.yml`` at full width for 4 steps under a one-rank NCCL
+   process group started by ``parallel.distributed.maybe_initialize``:
+   exact launches per step, CUDA events around every
+   ``all_reduce_grads`` (the gradient buckets of the G, D and SRD phases),
+   the loop's samples/s beside phase 10's; (b) two spawned ranks sharing
+   the card over gloo with CUDA tensors (NCCL refuses two ranks on one
+   device), batch 2 each, on the halves of one seeded global batch of 4
+   whose halves hold 8 and 20 valid characters, one ``train_step`` each,
+   against one process's step at batch 4 run first and freed: every loss
+   within phase 9's rtol 1e-3, each net's summed gradient within relative
+   L2 1e-2, both ranks' nets (spectral u / v included) equal after the
+   step, exact launches on each rank; peak memory of each rank and of the
+   one process. The kernels are built once, in phase 2, before any rank
+   starts. On an NVIDIA H100 80GB HBM3 at 700 W, phase 14 takes 56.4 s
+   (a: 4 steps of ``train()`` in 17.0 s; b: 36.6 s) and peaks at 24.63
+   GiB of device memory a rank and 44.35 GiB for the one process at
+   batch 4; phases 1-14 take 216.5 s.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -97,13 +115,18 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import hashlib
 import json
 import math
+import multiprocessing as mp
 import os
+import queue
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -116,6 +139,7 @@ from marconet_tpu_torch.cli import test_sr as cli_test_sr
 from marconet_tpu_torch.cli import test_w as cli_test_w
 from marconet_tpu_torch.data import synth as synth_module
 from marconet_tpu_torch.data.batch_prep import prepare_train_batch
+from marconet_tpu_torch.dryrun import seeded_batch
 from marconet_tpu_torch.data.synth import (
     CHECK_NUM,
     GT_H,
@@ -146,6 +170,7 @@ from marconet_tpu_torch.ops.fused_act import (
     fused_leaky_relu_bwd_plain,
     fused_leaky_relu_plain,
 )
+from marconet_tpu_torch.parallel import distributed
 from marconet_tpu_torch.ops.sft_writeback import (
     sft_writeback,
     sft_writeback_bwd,
@@ -1158,6 +1183,8 @@ def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 PARITY_LOSS_TOL = (1e-3, 1e-4)
 PARITY_GRAD_TOL = {"encoder": 1e-2, "prior": 1e-3, "srnet": 1e-2,
                    "net_d": 1e-3, "net_srd": 1e-3}
+# two ranks' summed gradients against one process's on the card (phase 14)
+PARITY_GRAD_TOL_DP = 1e-2
 PARITY_NATIVE_ENCODER_TOL = 1e-3
 PARITY_CONV_F64_TOL = 1e-5
 
@@ -2189,6 +2216,254 @@ def _run_loop(smi: str, bare_samples_per_s: float, config, work: str
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data-parallel training
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 4              # the one-rank NCCL loop: train(max_steps=4)
+DP_WORLD = 2              # ranks sharing the one card over gloo
+# valid characters of the global batch's rows: rank 0 holds 8, rank 1 20,
+# so per-rank masked means would not be the global batch's
+DP_COUNTS = (3, 5, 8, 12)
+DP_RANK_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _grad_vector(trainer, net: str) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for _, p in sorted(
+        trainer.net(net).named_parameters()) if p.grad is not None])
+
+
+def _state_digest(trainer) -> str:
+    """SHA-256 of every net's parameters and buffers (spectral u / v
+    included), in a fixed order."""
+    h = hashlib.sha256()
+    for net in NETS:
+        for k, v in sorted(trainer.net(net).state_dict().items()):
+            h.update(k.encode())
+            h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_dp(smi: str, bare_samples_per_s: float) -> dict:
+    """Data-parallel training: (a) ``train.loop.train`` from
+    ``options/train.yml`` at full width under a one-rank NCCL group; (b)
+    one ``train_step`` on two spawned ranks sharing the card over gloo
+    (CUDA tensors), each on its half of one seeded global batch of 4 whose
+    halves hold different counts of valid characters, against one process
+    over the whole batch. Returns the kernel launches of both runs."""
+    launches = _dp_one_rank_loop(smi, bare_samples_per_s)
+    for name, n in _dp_two_ranks(smi).items():
+        launches[name] += n
+    return launches
+
+
+def _dp_one_rank_loop(smi: str, bare_samples_per_s: float) -> dict:
+    config = load_config(LOOP_CONFIG)
+    t, loop = config.train, config.loop
+    if (t.width, t.max_chars, loop.batch_size) != (1.0, 16, TRAIN_BATCH):
+        raise AssertionError(f"{LOOP_CONFIG}: width {t.width}, slots "
+                             f"{t.max_chars}, batch {loop.batch_size}")
+    loop.print_freq, loop.val_freq, loop.save_freq = 1, 0, 10 ** 9
+    loop.allow_random_lpips = True
+    factory = functools.partial(SmokeSynthesizer, SynthConfig())
+    spans: list = []
+    reduce_grads = distributed.all_reduce_grads
+
+    def timed(params, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        n = reduce_grads(params, *args, **kwargs)
+        end.record()
+        spans.append((start, end, n))
+        return n
+
+    calls: list = []
+    with tempfile.TemporaryDirectory(prefix="dp_") as work:
+        loop.experiments_root = work
+        if not distributed.maybe_initialize(f"localhost:{_free_port()}", 1,
+                                            0, backend="nccl"):
+            raise AssertionError("no process group started")
+        distributed.all_reduce_grads = timed
+        _reset_counts()
+        try:
+            backend = torch.distributed.get_backend()
+            with _launches_per_call(calls):
+                t0 = time.perf_counter()
+                trainer = train(config, max_steps=DP_STEPS,
+                                synth_factory=factory)
+                seconds = time.perf_counter() - t0
+            launches = _counts()
+        finally:
+            distributed.all_reduce_grads = reduce_grads
+            distributed.shutdown()
+        rate = dict(events.scalars(os.path.join(work, loop.name, "tb"),
+                                   "speed/samples_per_sec"))
+    torch.cuda.synchronize()
+    if trainer.step != DP_STEPS or backend != "nccl":
+        raise AssertionError(f"step {trainer.step}, backend {backend}")
+    if [k for k, _ in calls] != ["step"] * DP_STEPS or \
+            any(c != TRAIN_LAUNCHES for _, c in calls):
+        raise AssertionError(f"calls and launches {calls}, expected "
+                             f"{DP_STEPS} steps of {TRAIN_LAUNCHES}")
+    _check_counts("dp", launches, {k: DP_STEPS * v for k, v in
+                                   TRAIN_LAUNCHES.items()},
+                  f"{DP_STEPS} loop steps on one NCCL rank")
+    if len(spans) != 3 * DP_STEPS:
+        raise AssertionError(f"{len(spans)} gradient all-reduces, expected "
+                             f"3 a step")
+    grad_bytes = sum(p.numel() * p.element_size() for net in NETS
+                     for p in trainer.net(net).parameters())
+    ar_ms = [sum(s.elapsed_time(e) for s, e, _ in spans[3 * i:3 * i + 3])
+             for i in range(DP_STEPS)]
+    buckets = sum(n for _, _, n in spans) / DP_STEPS
+    steady = list(range(2, DP_STEPS + 1))
+    loop_rate = len(steady) / sum(1.0 / rate[s] for s in steady)
+    say(f"[dp] (a) {LOOP_CONFIG} full width, batch {loop.batch_size}, "
+        f"{DP_STEPS} steps of train() under a one-rank {backend} group in "
+        f"{seconds:.1f} s; launches per step {calls[0][1]}")
+    say(f"[dp] (a) gradient all-reduce (G, D, SRD; {buckets:.0f} buckets of "
+        f"up to 25 MiB over {grad_bytes / 2 ** 20:.1f} MiB of f32 gradients "
+        f"a step), CUDA events: step 1 {ar_ms[0]:.3f} ms (NCCL sets up its "
+        f"communicator at the first collective), steps {steady} " + ", ".join(
+            f"{m:.3f}" for m in ar_ms[1:]) + f" ms, mean "
+        f"{sum(ar_ms[1:]) / len(steady):.3f} ms a step; loop samples/s over "
+        f"steps {steady}: "
+        f"{loop_rate:.3f} (each " + ", ".join(f"{rate[s]:.3f}"
+                                              for s in steady)
+        + f"); phase 10's bare train_step {bare_samples_per_s:.3f}; on {smi}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dp_rank(rank: int, init: str, arrays, ref_path: str, out_q) -> None:
+    """One rank of phase 14 (b), in a spawned process on the one card."""
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        distributed.maybe_initialize(init, DP_WORLD, rank, backend="gloo",
+                                     device=dev)
+        try:
+            trainer = MARCONetTrainer(TrainConfig(), device=dev, seed=0,
+                                      allow_random_lpips=True)
+            for net in NETS:
+                distributed.broadcast_module_state(trainer.net(net))
+            local = distributed.local_batch_slice(arrays, len(arrays["lq"]))
+            _reset_counts()
+            metrics = trainer.train_step(TrainBatch.from_numpy(local, dev))
+            torch.cuda.synchronize()
+            out = {"launches": _counts(),
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   "valid": float(local["char_valid"].sum()),
+                   "peak": torch.cuda.max_memory_allocated(dev)}
+            ref = torch.load(ref_path, map_location=dev, weights_only=True)
+            out["grad_rel_l2"] = {
+                net: _rel_l2(_grad_vector(trainer, net), ref["grads"][net])
+                for net in NETS}
+            del ref
+            out["digest"] = _state_digest(trainer)
+            distributed.barrier()
+        finally:
+            distributed.shutdown()
+        out_q.put((rank, out))
+    except BaseException:
+        out_q.put((rank, traceback.format_exc()))
+
+
+def _dp_two_ranks(smi: str) -> dict:
+    dev = torch.device("cuda", 0)
+    arrays = seeded_batch(np.random.default_rng(11), len(DP_COUNTS),
+                          TRAIN_SLOTS, DP_COUNTS)
+    with tempfile.TemporaryDirectory(prefix="dp_") as work:
+        # one process over the global batch of 4, first, then freed
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        one = MARCONetTrainer(TrainConfig(), device=dev, seed=0,
+                              allow_random_lpips=True)
+        want = {k: float(v) for k, v in one.train_step(
+            TrainBatch.from_numpy(arrays, dev)).items()}
+        torch.cuda.synchronize()
+        one_peak = torch.cuda.max_memory_allocated(dev)
+        ref_path = os.path.join(work, "reference.pt")
+        torch.save({"grads": {net: _grad_vector(one, net).cpu()
+                              for net in NETS}}, ref_path)
+        del one
+        torch.cuda.empty_cache()
+
+        ctx = mp.get_context("spawn")
+        out_q = ctx.Queue()
+        init = "file://" + os.path.join(work, "rendezvous")
+        procs = [ctx.Process(target=_dp_rank,
+                             args=(r, init, arrays, ref_path, out_q))
+                 for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        results = {}
+        try:
+            while len(results) < DP_WORLD:
+                try:
+                    rank, out = out_q.get(timeout=DP_RANK_TIMEOUT_S)
+                except queue.Empty:
+                    raise AssertionError(f"ranks {sorted(results)} of "
+                                         f"{DP_WORLD} reported") from None
+                if isinstance(out, str):
+                    raise AssertionError(f"rank {rank} failed:\n{out}")
+                results[rank] = out
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        seconds = time.perf_counter() - t0
+    ranks = [results[r] for r in range(DP_WORLD)]
+    if ranks[0]["valid"] == ranks[1]["valid"]:
+        raise AssertionError("the halves hold equal valid counts")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("the ranks' nets differ after the step")
+    launches = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    for r, out in enumerate(ranks):
+        _check_counts("dp", out["launches"], TRAIN_LAUNCHES,
+                      f"rank {r}'s step")
+        for k, v in out["launches"].items():
+            launches[k] += v
+        for k, w in want.items():
+            got = out["metrics"][k]
+            if not math.isclose(got, w, rel_tol=PARITY_LOSS_TOL[0],
+                                abs_tol=PARITY_LOSS_TOL[1]):
+                raise AssertionError(f"rank {r}: {k} {got} against one "
+                                     f"process's {w}")
+        for net, err in out["grad_rel_l2"].items():
+            if not err <= PARITY_GRAD_TOL_DP:
+                raise AssertionError(f"rank {r}: {net} gradient relative L2 "
+                                     f"{err} > {PARITY_GRAD_TOL_DP}")
+    say(f"[dp] (b) {DP_WORLD} ranks on one card over gloo (CUDA tensors), "
+        f"full width f32, batch 2 a rank x {TRAIN_SLOTS} slots, valid "
+        f"characters {ranks[0]['valid']:.0f} / {ranks[1]['valid']:.0f}, in "
+        f"{seconds:.1f} s; against one process at batch 4: losses within "
+        f"rtol {PARITY_LOSS_TOL[0]} (l_g_total "
+        f"{ranks[0]['metrics']['l_g_total']:.6f} / "
+        f"{want['l_g_total']:.6f}), gradient relative L2 " + ", ".join(
+            f"{net} {max(o['grad_rel_l2'][net] for o in ranks):.2e}"
+            for net in NETS) + f" (limit {PARITY_GRAD_TOL_DP}); nets equal "
+        f"on both ranks after the step (spectral u / v included)")
+    say(f"[dp] (b) peak device memory: rank 0 "
+        f"{ranks[0]['peak'] / 2 ** 30:.2f} GiB, rank 1 "
+        f"{ranks[1]['peak'] / 2 ** 30:.2f} GiB, one process at batch 4 "
+        f"{one_peak / 2 ** 30:.2f} GiB; on {smi}")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2208,12 +2483,17 @@ def main() -> None:
         cli = phase_cli(smi, ckpt_dir, work)
     say(f"[smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s")
     loop = phase_loop(smi, bare_rate)
+    say(f"[smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s")
+    t14 = time.perf_counter()
+    dp = phase_dp(smi, bare_rate)
+    say(f"[smoke] phase 14 in {time.perf_counter() - t14:.1f} s")
     kernels = [dict(name=name, **KERNELS[name],
                     launches=k3[name] + serve[name] + page[name]
-                    + train_launches[name] + cli[name] + loop[name],
+                    + train_launches[name] + cli[name] + loop[name]
+                    + dp[name],
                     **report[name])
                for name in KERNELS]
-    say(f"[smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s")
+    say(f"[smoke] phases 1-14 in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,19 @@
         [--max_steps N] [--allow_random_lpips] [--device cpu]
 
 Reads the YAML config (``train/config.py``) and runs the loop
-(``train/loop.py``) on one device, CUDA unless ``--device`` names another.
+(``train/loop.py``), CUDA unless ``--device`` names another device.
+
+Data parallelism, one rank a device (``num_gpu`` in the config must be
+``auto`` or the number of ranks; ``batch_size_per_gpu`` is per rank):
+
+    torchrun --nproc_per_node N -m marconet_tpu_torch.cli.train \
+        -opt options/train.yml
+
+or one process a rank started by hand with ``MARCONET_COORDINATOR=
+host:port``, ``MARCONET_NUM_PROCS=N`` and ``MARCONET_PROC_ID=<rank>``
+(plus ``LOCAL_RANK`` when ranks share a host with other ranks' devices).
+The backend is NCCL on CUDA devices and gloo on the CPU.
+
 The default synthesizer needs a glyph renderer and the font pack, which
 the repository does not have (``data/synth.py``): until then training
 stops at the first batch with that message.
@@ -29,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="permit training without pretrained LPIPS "
                              "VGG weights (different objective!)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default: cuda)")
+                        help="torch device (default: cuda, this rank's)")
     return parser
 
 

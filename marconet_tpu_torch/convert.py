@@ -634,3 +634,85 @@ def ocr_from_jax(variables: Mapping[str, Any]) -> StateDict:
     _norm(sd, "norm", p["norm"])
     _dense(sd, "head", p["head"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# legacy TransformerOCR (reference models/ocr.py:310-370)
+# ---------------------------------------------------------------------------
+
+# keys of a released ``TransformerOCR`` state dict that the port's module
+# does not hold, as the JAX package's ``convert_legacy_ocr`` ignores them:
+# BN step counters, the positional-encoding buffer (recomputed) and a
+# submodule the reference never calls
+LEGACY_OCR_IGNORED = re.compile(
+    r"(num_batches_tracked$|^pe\.pe$|compress_attention_linear)")
+
+
+def _bn_from_jax(sd: StateDict, prefix: str, p, s) -> None:
+    _norm(sd, prefix, p)
+    sd[f"{prefix}.running_mean"] = _t(s["mean"])
+    sd[f"{prefix}.running_var"] = _t(s["var"])
+
+
+def _conv_bias(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _conv(p["kernel"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def legacy_ocr_from_jax(variables: Mapping[str, Any]) -> StateDict:
+    """``LegacyTransformerOCR`` flax variables -> a state dict under the
+    reference's ``TransformerOCR`` key names (the inverse of
+    ``convert_legacy_ocr``, less the keys it ignores)."""
+    p, s = variables["params"], variables["batch_stats"]
+    ep, es = p["encoder"], s["encoder"]
+    sd: StateDict = {"embedding_word.lut.weight":
+                     _t(p["embedding"]["embedding"])}
+    for i in (1, 2):
+        _conv_bias(sd, f"encoder.conv{i}", ep[f"conv{i}"])
+        _bn_from_jax(sd, f"encoder.bn{i}", ep[f"bn{i}"], es[f"bn{i}"])
+    for name, blk in ep.items():
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        if not m:
+            continue
+        base, bs = f"encoder.layer{m.group(1)}.{m.group(2)}", es[name]
+        for j in (1, 2):
+            _conv_bias(sd, f"{base}.conv{j}", blk[f"conv{j}"])
+            _bn_from_jax(sd, f"{base}.bn{j}", blk[f"bn{j}"], bs[f"bn{j}"])
+        if "down_conv" in blk:
+            _conv_bias(sd, f"{base}.downsample.0", blk["down_conv"])
+            _bn_from_jax(sd, f"{base}.downsample.1", blk["down_bn"],
+                         bs["down_bn"])
+    for li in (1, 2, 3):
+        _conv_bias(sd, f"encoder.layer{li}_conv", ep[f"layer{li}_conv"])
+        _bn_from_jax(sd, f"encoder.layer{li}_bn", ep[f"layer{li}_bn"],
+                     es[f"layer{li}_bn"])
+    _conv_bias(sd, "encoder.layer4_conv2", ep["out_conv"])
+    _bn_from_jax(sd, "encoder.layer4_conv2_bn", ep["out_bn"], es["out_bn"])
+    dec = p["decoder"]
+    for attn, name in (("self_attn", "mask_multihead"),
+                       ("cross_attn", "multihead")):
+        for i, proj in enumerate(("q", "k", "v", "out")):
+            _dense(sd, f"decoder.{name}.linears.{i}", dec[attn][proj])
+    for i in (1, 2, 3):
+        sd[f"decoder.mul_layernorm{i}.a_2"] = _t(dec[f"norm{i}"]["scale"])
+        sd[f"decoder.mul_layernorm{i}.b_2"] = _t(dec[f"norm{i}"]["bias"])
+    _dense(sd, "decoder.pff.w_1", dec["ff1"])
+    _dense(sd, "decoder.pff.w_2", dec["ff2"])
+    _dense(sd, "generator_word.proj", p["generator"])
+    if "loc_head" in p:
+        _dense(sd, "generator_loc.proj", p["loc_head"])
+    return sd
+
+
+def load_legacy_ocr(model: nn.Module, state: Mapping[str, Any]
+                    ) -> nn.Module:
+    """Strictly load a ``TransformerOCR`` state dict (a released
+    ``net_real_world_ocr.pth`` / ``net_new_bbox.pth``, or
+    :func:`legacy_ocr_from_jax`'s) into a ``LegacyTransformerOCR``: the
+    keys of ``LEGACY_OCR_IGNORED`` are dropped, any other missing, extra or
+    misshapen key raises."""
+    sd = {k: torch.as_tensor(np.asarray(v, np.float32))
+          if not torch.is_tensor(v) else v.float()
+          for k, v in state.items() if not LEGACY_OCR_IGNORED.search(k)}
+    model.load_state_dict(sd, strict=True)
+    return model

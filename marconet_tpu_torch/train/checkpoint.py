@@ -8,6 +8,10 @@ not LPIPS, which is never trained and comes from its own files. Old
 files beyond ``max_to_keep`` are deleted, as the reference's basicsr
 checkpointing and the JAX package's Orbax manager do
 (``tspgan_model.py:623-629``, ``train.yml:74,183-184``).
+
+Under data parallelism every rank holds the same state: rank 0 writes,
+the others wait at a barrier until the file is there, and every rank
+reads it on resume.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import re
 from typing import List, Optional
 
 import torch
+
+from marconet_tpu_torch.parallel import distributed
 
 _PATTERN = re.compile(r"^step_(\d+)\.pt$")
 
@@ -33,15 +39,18 @@ def _path(ckpt_dir: str, step: int) -> str:
 
 
 def save_state(ckpt_dir: str, trainer, max_to_keep: int = 5) -> str:
-    """Save ``trainer``'s state under its step; keep the newest
-    ``max_to_keep`` checkpoints. Returns the file written."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Save ``trainer``'s state under its step (on rank 0; every rank
+    returns once it is written); keep the newest ``max_to_keep``
+    checkpoints. Returns the file."""
     path = _path(ckpt_dir, trainer.step)
-    tmp = path + ".tmp"
-    torch.save(trainer.state_dict(), tmp)
-    os.replace(tmp, path)           # a reader never sees a partial file
-    for old in _steps(ckpt_dir)[:-max_to_keep]:
-        os.remove(_path(ckpt_dir, old))
+    if distributed.rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(trainer.state_dict(), tmp)
+        os.replace(tmp, path)       # a reader never sees a partial file
+        for old in _steps(ckpt_dir)[:-max_to_keep]:
+            os.remove(_path(ckpt_dir, old))
+    distributed.barrier()
     return path
 
 

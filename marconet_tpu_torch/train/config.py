@@ -40,8 +40,8 @@ class LoopConfig:
     pretrain_dir: Optional[str] = None
     # opt-in to training without pretrained LPIPS VGG weights
     allow_random_lpips: bool = False
-    # device count (reference `num_gpu`, train.yml:4); None = "auto". The
-    # port trains on one device until its data-parallel slice exists.
+    # device count (reference `num_gpu`, train.yml:4); None = "auto". One
+    # rank drives one device: train() checks it against the world size.
     num_devices: Optional[int] = None
 
 
@@ -52,15 +52,15 @@ class FullConfig:
     raw: Dict[str, Any] = field(default_factory=dict)
 
 
-def check_one_device(loop: LoopConfig) -> None:
-    """Refuse ``num_devices`` above 1: data-parallel training (the JAX
-    package's ``parallel/*``) is a later slice of the port (ROADMAP:
-    DDP)."""
-    if loop.num_devices is not None and loop.num_devices > 1:
+def check_world_size(loop: LoopConfig, world: int) -> None:
+    """Refuse a ``num_gpu`` other than ``auto`` and the world size: one
+    rank drives one device, so the count of devices is the count of
+    ranks, which is known only once the process group is up."""
+    if loop.num_devices is not None and loop.num_devices != world:
         raise ValueError(
-            f"num_gpu {loop.num_devices}: the PyTorch port trains on one "
-            "device; data-parallel training (torch.distributed DDP, the "
-            "counterpart of marconet_tpu/parallel) is not ported yet")
+            f"num_gpu {loop.num_devices} but the world size is {world}: "
+            "one rank drives one device; launch num_gpu ranks (torchrun "
+            "--nproc_per_node, or MARCONET_NUM_PROCS) or set num_gpu: auto")
 
 
 def _get(d: Dict, path: str, default=None):
@@ -126,5 +126,4 @@ def load_config(path: str) -> FullConfig:
         num_devices=None if str(raw.get("num_gpu", "auto")) == "auto"
         else int(raw["num_gpu"]),
     )
-    check_one_device(loop)
     return FullConfig(train=train, loop=loop, raw=raw)

@@ -1,9 +1,9 @@
 """Training loop: data workers, device feed, logging, checkpointing.
 
 Counterpart of ``marconet_tpu/train/loop.py`` (basicsr's
-``train_pipeline``, reference ``Train/tspgan/train.py:1-11``) on one
-device: spawned worker processes synthesize batches on the host into a
-bounded queue, each batch goes to the device through pinned memory
+``train_pipeline``, reference ``Train/tspgan/train.py:1-11``), one
+device a rank: spawned worker processes synthesize batches on the host
+into a bounded queue, each batch goes to the device through pinned memory
 (``TrainBatch.from_numpy``), ``MARCONetTrainer.train_step`` runs the three
 phases, and the loop logs to a TensorBoard event file (``train/events.py``):
 the loss terms, ``speed/samples_per_sec`` and ``speed/data_wait_ms`` (the
@@ -17,6 +17,15 @@ waits for the device.
 the steps ``start + 10 .. start + 15`` (as the JAX package's window) into
 ``<dir>``, with the spans ``train/data_wait``, ``train/val`` and
 ``train/save`` marked on the host's timeline.
+
+Data parallelism (``parallel/distributed.py``), as the JAX loop: the
+process group comes up first (``maybe_initialize``: the ``MARCONET_*``
+variables or torchrun's), each rank drives ``cuda:LOCAL_RANK`` and
+synthesizes its own rows with worker seeds offset by ``rank * 10_000``,
+every rank starts from rank 0's nets, the step sums gradients and losses
+over the ranks, and rank 0 alone prints, writes events and visuals (from
+its own rows) and checkpoints. ``speed/samples_per_sec`` counts the
+global batch.
 """
 
 from __future__ import annotations
@@ -36,15 +45,20 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from marconet_tpu_torch.convert import load_reference_pth
 from marconet_tpu_torch.data.synth import SynthConfig, TextLineSynthesizer
 from marconet_tpu_torch.models.pipeline import resolve_device
+from marconet_tpu_torch.parallel import distributed
 from marconet_tpu_torch.train import checkpoint as ckpt
 from marconet_tpu_torch.train.config import (
     FullConfig,
     LoopConfig,
-    check_one_device,
+    check_world_size,
 )
 from marconet_tpu_torch.train.events import EventWriter
 from marconet_tpu_torch.train.lpips import MissingLpipsWeights
-from marconet_tpu_torch.train.train_step import MARCONetTrainer, TrainBatch
+from marconet_tpu_torch.train.train_step import (
+    NETS,
+    MARCONetTrainer,
+    TrainBatch,
+)
 from marconet_tpu_torch.train.visuals import build_visual_grids
 
 # the profiled steps, relative to the first step of the run: [10, 16)
@@ -205,16 +219,35 @@ def train(config: FullConfig, max_steps: Optional[int] = None,
     """Train until step ``min(total_iter, max_steps)``; returns the
     trainer.
 
-    ``device``: CUDA unless named. ``synth_factory``: the workers'
+    ``device``: CUDA unless named; a CUDA device without an index is this
+    rank's, ``cuda:LOCAL_RANK``. ``synth_factory``: the workers'
     synthesizer (see :class:`BatchLoader`). ``profile_steps``: the
     [first, stop) steps, counted from the run's first, that
-    ``MARCONET_PROFILE`` traces. Refuses more than one device and, unless
-    ``allow_random_lpips`` is set, a missing pretrained LPIPS (both
-    before any worker starts).
+    ``MARCONET_PROFILE`` traces (on rank 0). The process group is the one
+    already up, kept, or else the one the environment names
+    (:func:`~marconet_tpu_torch.parallel.distributed.maybe_initialize`,
+    its backend by ``device``), ended on return. Refuses a ``num_gpu``
+    other than the world size and, unless ``allow_random_lpips`` is set, a
+    missing pretrained LPIPS (both before any worker starts).
     """
+    owned = distributed.maybe_initialize(device=device)
+    try:
+        return _train(config, max_steps, device, synth_factory,
+                      profile_steps)
+    finally:
+        if owned:
+            distributed.shutdown()
+
+
+def _train(config: FullConfig, max_steps: Optional[int], device,
+           synth_factory: Optional[Callable],
+           profile_steps: Tuple[int, int]) -> MARCONetTrainer:
     loop = config.loop
-    check_one_device(loop)
-    device = resolve_device(device)
+    world, main = distributed.world_size(), distributed.rank() == 0
+    check_world_size(loop, world)
+    device = resolve_device(distributed.local_device(device))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     run_dir = os.path.join(loop.experiments_root, loop.name)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     os.makedirs(run_dir, exist_ok=True)
@@ -230,16 +263,25 @@ def train(config: FullConfig, max_steps: Optional[int] = None,
                          ) from None
     if loop.resume_state:
         ckpt.restore_state(loop.resume_state, trainer)
-        print(f"resumed from {loop.resume_state} at step {trainer.step}")
+        if main:
+            print(f"resumed from {loop.resume_state} at step {trainer.step}")
     elif loop.pretrain_dir:
         warm_start(trainer, loop.pretrain_dir)
+    for name in NETS:           # every rank starts from rank 0's nets
+        distributed.broadcast_module_state(trainer.net(name))
     start = trainer.step
+    global_batch = loop.batch_size * world
+    if world > 1 and main:
+        print(f"data parallel: {world} ranks, global batch {global_batch} "
+              f"({loop.batch_size} a rank)")
 
     writer = EventWriter(os.path.join(run_dir, "tb")) \
-        if loop.use_tb_logger else None
+        if loop.use_tb_logger and main else None
+    # each rank synthesizes its own rows; worker seeds disjoint over ranks
     loader = BatchLoader(loop, loop.batch_size, max_chars=trainer.max_chars,
+                         seed_offset=distributed.rank() * 10_000,
                          synth_factory=synth_factory)
-    profile_dir = os.environ.get("MARCONET_PROFILE")
+    profile_dir = os.environ.get("MARCONET_PROFILE") if main else None
     prof = None
     window = (start + profile_steps[0] + 1, start + profile_steps[1])
     total = min(loop.total_iter, max_steps or loop.total_iter)
@@ -255,16 +297,18 @@ def train(config: FullConfig, max_steps: Optional[int] = None,
                 raw = next(batches)
             wait += time.perf_counter() - tw
             batch = TrainBatch.from_numpy(raw, device)
+            # the losses come back summed over the ranks (every rank runs
+            # the same collectives a step, so none waits on another's branch)
             metrics = trainer.train_step(batch)
             done = step + 1
             if prof is not None and done == window[1]:
                 _stop_profile(prof, device, profile_dir, window)
                 prof = None
 
-            if done % loop.print_freq == 0:
+            if main and done % loop.print_freq == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()
-                rate = loop.print_freq * loop.batch_size / (now - t0)
+                rate = loop.print_freq * global_batch / (now - t0)
                 wait_ms = wait * 1e3 / loop.print_freq
                 t0, wait = now, 0.0
                 print(f"iter {done} | {rate:.3f} samples/s | data wait "
@@ -276,6 +320,7 @@ def train(config: FullConfig, max_steps: Optional[int] = None,
                         writer.add_scalar(f"losses/{k}", v, done)
                     writer.add_scalar("speed/samples_per_sec", rate, done)
                     writer.add_scalar("speed/data_wait_ms", wait_ms, done)
+            # rank 0's own rows; the eval forward issues no collective
             if writer is not None and loop.val_freq > 0 \
                     and done % loop.val_freq == 0:
                 with record_function("train/val"):
@@ -283,7 +328,8 @@ def train(config: FullConfig, max_steps: Optional[int] = None,
             if done % loop.save_freq == 0:
                 with record_function("train/save"):
                     path = ckpt.save_state(ckpt_dir, trainer)
-                print(f"saved checkpoint at iter {done}: {path}")
+                if main:
+                    print(f"saved checkpoint at iter {done}: {path}")
     finally:
         if prof is not None:
             _stop_profile(prof, device, profile_dir,

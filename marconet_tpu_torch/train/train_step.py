@@ -25,6 +25,17 @@ Freeze groups keep named parameter groups out of their optimizer.
 The state is plain PyTorch: the five nets (with their spectral buffers),
 the five optimizers and the step count; ``state_dict`` /
 ``load_state_dict`` carry all of it (``train/checkpoint.py``).
+
+Data parallelism (``parallel/distributed.py``): with a process group of
+``world`` ranks, each step takes this rank's rows of the global batch
+(``TrainBatch`` stays per rank). One ``all_reduce`` sums the batch's three
+masks over the ranks; every loss term is then this rank's share of the
+global batch's (``train/losses.py``). The gradients are summed over the
+ranks (``all_reduce_grads``) after the G backward and after each D / SRD
+backward, before the optimizer steps, and the returned losses are summed
+too: both equal one process's over the global batch. Without a process
+group no collective runs and the step is unchanged; under a group of one
+rank only the gradient buckets go through it.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from marconet_tpu_torch.models.srnet import StructurePriorSRNet
 from marconet_tpu_torch.ops.layers import nchw, nhwc
 from marconet_tpu_torch.ops.resize import resize_bilinear
 from marconet_tpu_torch.ops.window import resample2tap
+from marconet_tpu_torch.parallel import distributed
 from marconet_tpu_torch.train import losses as L
 from marconet_tpu_torch.train.discriminators import UNetDiscriminatorSN
 from marconet_tpu_torch.train.lpips import (
@@ -51,6 +63,9 @@ from marconet_tpu_torch.train.lpips import (
 )
 
 NETS = ("encoder", "prior", "srnet", "net_d", "net_srd")
+G_NETS = NETS[:3]
+# one process's batch: the world size and no global mask sums
+ONE_PROCESS = {"world": 1, "char": None, "box": None, "patch": None}
 
 
 class TrainConfig(NamedTuple):
@@ -285,28 +300,35 @@ class MARCONetTrainer:
                                 c.lr_gamma)
         opt.step()
 
-    def _g_loss(self, batch: TrainBatch):
-        """Phase G forward: (total loss, metrics, detached crops)."""
+    def _g_loss(self, batch: TrainBatch, share: Optional[dict] = None):
+        """Phase G forward: (total loss, metrics, detached crops).
+        ``share``: :meth:`batch_share`'s global mask sums and world size
+        (one process's batch when None)."""
         cfg = self.cfg
         b, n = batch.lq.shape[0], self.max_chars
         metrics = {}
+        share = share or ONE_PROCESS
+        world, n_char = share["world"], share["char"]
 
         # 1. encoder
         lq = nchw(batch.lq)
         logits, locs_lr, w = self.encoder(lq)
         pred_cw = L.lr_to_center_width(locs_lr)
         gt_cw = L.lr_to_center_width(batch.boxinfo_lr)
-        metrics["l_ctc"] = L.ctc_loss(logits, batch.labels) * cfg.ctc_lambda
+        metrics["l_ctc"] = L.ctc_loss(logits, batch.labels,
+                                      world=world) * cfg.ctc_lambda
 
         # 2. localization (the reference includes padded slots in the
         # SmoothL1 terms; only the IoU term is validity-masked)
         metrics["l_loc_center"] = L.smooth_l1_loss(
-            pred_cw[:, 0::2] * 2048.0, gt_cw[:, 0::2] * 2048.0) \
-            * cfg.loc_lambda * 2.0
+            pred_cw[:, 0::2] * 2048.0, gt_cw[:, 0::2] * 2048.0,
+            world=world) * cfg.loc_lambda * 2.0
         metrics["l_loc"] = L.smooth_l1_loss(
-            locs_lr * 2048.0, batch.boxinfo_lr * 2048.0) * cfg.loc_lambda
+            locs_lr * 2048.0, batch.boxinfo_lr * 2048.0,
+            world=world) * cfg.loc_lambda
         metrics["l_loc_iou"] = L.box_iou_loss(
-            pred_cw, gt_cw, batch.box_valid) * cfg.iou_lambda
+            pred_cw, gt_cw, batch.box_valid,
+            total=share["box"]) * cfg.iou_lambda
 
         # 3. structure priors for all slots
         safe_labels = torch.where(batch.char_valid > 0, batch.labels,
@@ -318,26 +340,29 @@ class MARCONetTrainer:
         cmask = batch.char_valid[:, :, None, None, None]
         metrics["l_g_pix128"] = L.l1_loss(
             prior128, batch.gt_chars, mask=cmask,
-            weight=cfg.pixel_weight * cfg.lambda128)
+            weight=cfg.pixel_weight * cfg.lambda128, total=n_char)
         metrics["l_g_iou128"] = L.soft_iou_loss(
-            prior128, batch.gt_chars, mask=cmask) * cfg.lambda_pix_iou
+            prior128, batch.gt_chars, mask=cmask, total=n_char) \
+            * cfg.lambda_pix_iou
         metrics["l_g_pix64"] = L.l1_loss(
             rgb64, _resize_chars(batch.gt_chars, 64), mask=cmask,
-            weight=cfg.pixel_weight * cfg.lambda64)
+            weight=cfg.pixel_weight * cfg.lambda64, total=n_char)
         metrics["l_g_pix32"] = L.l1_loss(
             rgb32, _resize_chars(batch.gt_chars, 32), mask=cmask,
-            weight=cfg.pixel_weight * cfg.lambda32)
+            weight=cfg.pixel_weight * cfg.lambda32, total=n_char)
 
         # 4. prior GAN loss (D frozen, spectral vectors not updated)
         cmask3 = batch.char_valid[:, :, None]
         metrics["l_g_gan"] = L.hinge_g_loss(
-            _judge(self.net_d, prior128), mask=cmask3) * cfg.gan_lambda
+            _judge(self.net_d, prior128), mask=cmask3, total=n_char) \
+            * cfg.gan_lambda
 
         # 5. SR (priors and locs detached)
         sr = nhwc(self.srnet(lq, pri.feat64.detach(), pri.feat32.detach(),
                              pred_cw.detach(), batch.char_valid))
         metrics["l_sr_pix"] = L.l1_loss(sr, batch.gt,
-                                        weight=cfg.srpixel_weight)
+                                        weight=cfg.srpixel_weight,
+                                        world=world)
 
         # 6. char crops + GAN terms
         sr_chars = crop_chars(sr, batch.crop_idx, batch.crop_w0)
@@ -345,9 +370,10 @@ class MARCONetTrainer:
         metrics["l_sr_d_pr"] = L.hinge_g_loss(
             _judge(self.net_srd,
                    torch.cat([sr_chars, prior128.detach()], -1)),
-            mask=cmask3) * cfg.srgan_lambda
+            mask=cmask3, total=n_char) * cfg.srgan_lambda
         metrics["l_sr_d_r"] = L.hinge_g_loss(
-            _judge(self.net_d, sr_chars), mask=cmask3) * cfg.gan_lambda
+            _judge(self.net_d, sr_chars), mask=cmask3, total=n_char) \
+            * cfg.gan_lambda
 
         # 7. perceptual loss on 128 px patches
         def patches(img):            # (B, 128, 128N, 3) -> (BN, 3, 128, 128)
@@ -356,7 +382,8 @@ class MARCONetTrainer:
 
         lp = self.lpips(patches(sr), patches(batch.gt))
         metrics["l_sr_percep"] = L.masked_mean(
-            lp.reshape(b, n), batch.patch_valid) * cfg.lpips_lambda
+            lp.reshape(b, n), batch.patch_valid,
+            total=share["patch"]) * cfg.lpips_lambda
 
         total = sum(metrics.values())
         metrics["l_g_total"] = total
@@ -365,32 +392,58 @@ class MARCONetTrainer:
                  "prior128": prior128.detach()}
         return total, metrics, crops
 
-    def g_phase(self, batch: TrainBatch):
+    @staticmethod
+    def batch_share(batch: TrainBatch) -> dict:
+        """What this rank's ``batch`` is of the global batch: the world
+        size and the global sums of its char, box and patch masks (one
+        ``all_reduce``); :data:`ONE_PROCESS` at world size 1."""
+        world = distributed.world_size()
+        if world == 1:
+            return ONE_PROCESS
+        return dict(world=world, **distributed.all_reduce_metrics(
+            {"char": batch.char_valid.sum(), "box": batch.box_valid.sum(),
+             "patch": batch.patch_valid.sum()}))
+
+    def _reduce_grads(self, names) -> None:
+        """Sum the gradients of the parameters that the optimizers of
+        ``names`` step over all ranks (no-op at world size 1)."""
+        distributed.all_reduce_grads(
+            p for name in names if self.optimizers[name] is not None
+            for group in self.optimizers[name].param_groups
+            for p in group["params"])
+
+    def g_phase(self, batch: TrainBatch, share: Optional[dict] = None):
         """Phase G forward and backward, no optimizer step: gradients are
-        left in the encoder's, prior's and SR net's ``.grad``. Returns
-        (metrics, detached crops)."""
-        for name in ("encoder", "prior", "srnet"):
+        left in the encoder's, prior's and SR net's ``.grad``, summed over
+        the ranks. Returns (metrics, detached crops)."""
+        share = share or self.batch_share(batch)
+        for name in G_NETS:
             self.net(name).train().zero_grad(set_to_none=True)
         self.net_d.eval()
         self.net_srd.eval()
-        total, metrics, crops = self._g_loss(batch)
+        total, metrics, crops = self._g_loss(batch, share)
         # only the G nets' gradients: the discriminators pass gradients to
         # their inputs and compute none for their own weights
-        total.backward(inputs=[p for name in ("encoder", "prior", "srnet")
+        total.backward(inputs=[p for name in G_NETS
                                for p in self.net(name).parameters()
                                if p.requires_grad])
+        self._reduce_grads(G_NETS)
         return metrics, crops
 
-    def _d_phase(self, name: str, fake, real, mask) -> torch.Tensor:
+    def _d_phase(self, name: str, fake, real, mask,
+                 share: dict) -> torch.Tensor:
         """Fake then real forward (each advancing u / v), hinge loss,
-        backward and update."""
+        backward, the gradients summed over the ranks, and update."""
         net = self.net(name).train()
         net.zero_grad(set_to_none=True)
         fake_pred = _judge(net, fake)
         real_pred = _judge(net, real)
         loss = L.hinge_d_loss(real_pred, fake_pred, real_mask=mask,
-                              fake_mask=mask)
+                              fake_mask=mask, real_total=share["char"],
+                              fake_total=share["char"],
+                              world=share["world"])
         loss.backward()
+        self._reduce_grads((name,))
         self._update(name)
         return loss.detach()
 
@@ -409,22 +462,24 @@ class MARCONetTrainer:
                 marks[-1].record()
 
         mark()
-        metrics, crops = self.g_phase(batch)
-        for name in ("encoder", "prior", "srnet"):
+        share = self.batch_share(batch)
+        metrics, crops = self.g_phase(batch, share)
+        for name in G_NETS:
             self._update(name)
         metrics = {k: v.detach() for k, v in metrics.items()}
         mark()
         cmask3 = batch.char_valid[:, :, None]
         metrics["l_d"] = self._d_phase(
-            "net_d", crops["sr_chars"], crops["gt_chars_rgb"], cmask3)
+            "net_d", crops["sr_chars"], crops["gt_chars_rgb"], cmask3, share)
         mark()
         metrics["l_srd"] = self._d_phase(
             "net_srd",
             torch.cat([crops["sr_chars"], crops["prior128"]], -1),
-            torch.cat([crops["gt_chars_rgb"], batch.gt_chars], -1), cmask3)
+            torch.cat([crops["gt_chars_rgb"], batch.gt_chars], -1), cmask3,
+            share)
         mark()
         self.step += 1
-        return metrics
+        return distributed.all_reduce_metrics(metrics)
 
     @torch.no_grad()
     def visual_forward(self, batch: TrainBatch) -> Dict[str, torch.Tensor]:

@@ -24,7 +24,7 @@ region, which is all the metric keeps of cv2's ``filter2D``.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 from scipy import signal
@@ -67,12 +67,16 @@ def _cubic_taps(n_out: int, n_in: int, inv_scale: float):
     return idx, w
 
 
-def resize_cubic_u8(img: np.ndarray, factor: float) -> np.ndarray:
+def resize_cubic_u8(img: np.ndarray, factor: Optional[float] = None,
+                    size: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """``cv2.resize(img, (0, 0), fx=factor, fy=factor,
-    interpolation=cv2.INTER_CUBIC)`` for an (H, W, C) uint8 image.
+    interpolation=cv2.INTER_CUBIC)`` for an (H, W, C) uint8 image, or with
+    ``size`` = (width, height) ``cv2.resize(img, size,
+    interpolation=cv2.INTER_CUBIC)``.
 
     OpenCV's own algorithm: output size ``cvRound(W * factor)`` by
-    ``cvRound(H * factor)``; half-pixel source coordinates; A = -0.75; edge
+    ``cvRound(H * factor)`` (or ``size``, each axis scaled by its own
+    ratio); half-pixel source coordinates; A = -0.75; edge
     indices clamped; no antialiasing when shrinking; weights rounded to 11
     bits. The horizontal pass sums in integers; the vertical pass, like
     OpenCV's SSE code, scales the integer rows by the weights / 2**22 in
@@ -81,13 +85,18 @@ def resize_cubic_u8(img: np.ndarray, factor: float) -> np.ndarray:
     22). Both saturate to [0, 255].
     """
     h, w = img.shape[:2]
-    out_w, out_h = int(round(w * factor)), int(round(h * factor))
+    if size is None:
+        out_w, out_h = int(round(w * factor)), int(round(h * factor))
+        fx = fy = factor
+    else:
+        out_w, out_h = int(size[0]), int(size[1])
+        fx, fy = out_w / w, out_h / h
     if (out_h, out_w) == (h, w):
         return img.copy()
     c = img.reshape(h, w, -1).shape[2]
     src = img.reshape(h, w * c).astype(np.int32)
-    xi, xw = _cubic_taps(out_w, w, factor)
-    yi, yw = _cubic_taps(out_h, h, factor)
+    xi, xw = _cubic_taps(out_w, w, fx)
+    yi, yw = _cubic_taps(out_h, h, fy)
     # horizontal: exact integer sums over the 4 taps, (h, out_w * C)
     chan = np.arange(c)
     rows = sum(np.take(src, (xi[:, k, None] * c + chan).ravel(), axis=1)

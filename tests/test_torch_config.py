@@ -96,8 +96,20 @@ def test_load_config_reads_overrides_as_jax(tmp_path):
 
 
 def test_refuses_more_than_one_device(tmp_path):
+    """``num_gpu: 4`` loads as the JAX package loads it (the world size is
+    not known at load time); ``train()`` on one rank refuses it, naming
+    both numbers, before it builds anything."""
+    from marconet_tpu_torch.train.loop import train
+
     path = tmp_path / "multi.yml"
     path.write_text(pathlib.Path(TRAIN_YML).read_text() + "\nnum_gpu: 4\n")
-    assert jconfig.load_config(str(path)).loop.num_devices == 4
-    with pytest.raises(ValueError, match="data-parallel"):
-        tconfig.load_config(str(path))
+    got, want = tconfig.load_config(str(path)), \
+        jconfig.load_config(str(path))
+    assert dataclasses.asdict(got.loop) == dataclasses.asdict(want.loop)
+    assert tuple(got.train) == tuple(want.train)
+    assert got.loop.num_devices == 4
+    got.loop.experiments_root = str(tmp_path)
+    with pytest.raises(ValueError, match="num_gpu 4 but the world size "
+                                         "is 1"):
+        train(got, max_steps=1, device="cpu")
+    assert not (tmp_path / got.loop.name).exists()

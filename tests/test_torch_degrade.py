@@ -204,6 +204,70 @@ def test_jpeg_np_matches_jax(quality):
                                       jdiffjpeg.jpeg_np(img, quality))
 
 
+# the batched torch round trip against the JAX package's ``diff_jpeg``:
+# (B, H, W, 3) with H, W not multiples of 16, per-image and one quality
+DIFF_JPEG_SHAPE = (2, 37, 53, 3)
+
+
+def _diff_jpeg_inputs(seed: int):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, DIFF_JPEG_SHAPE).astype(np.float32)
+    return x, rng.uniform(-1, 1, DIFF_JPEG_SHAPE).astype(np.float32)
+
+
+@pytest.mark.parametrize("differentiable", [False, True])
+@pytest.mark.parametrize("quality", [(35.0, 80.0), 62.5])
+def test_diff_jpeg_matches_jax(differentiable, quality):
+    """Forward within 1e-5 of JAX's (outputs in [0, 1])."""
+    import jax.numpy as jnp
+    import torch
+
+    x, _ = _diff_jpeg_inputs(7)
+    want = np.asarray(jdiffjpeg.diff_jpeg(jnp.asarray(x),
+                                          jnp.asarray(quality),
+                                          differentiable=differentiable))
+    got = tdiffjpeg.diff_jpeg(torch.from_numpy(x), torch.tensor(quality),
+                              differentiable=differentiable).numpy()
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_diff_jpeg_gradient_matches_jax():
+    """The gradient of a weighted sum of the soft-rounded round trip by
+    autograd against ``jax.grad``, within 1e-4."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    x, wts = _diff_jpeg_inputs(8)
+    quality = (40.0, 90.0)
+
+    def loss(v):
+        return (jdiffjpeg.diff_jpeg(v, jnp.asarray(quality),
+                                    differentiable=True) * wts).sum()
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (tdiffjpeg.diff_jpeg(xt, torch.tensor(quality), differentiable=True)
+     * torch.from_numpy(wts)).sum().backward()
+    assert float(np.abs(want).max()) > 0.1
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_diff_jpeg_matches_jpeg_np():
+    """Without the surrogate, each image of the batch is ``jpeg_np``'s
+    round trip at its own quality (within 1e-5)."""
+    import torch
+
+    x, _ = _diff_jpeg_inputs(9)
+    quality = (30.5, 77.3)
+    got = tdiffjpeg.diff_jpeg(torch.from_numpy(x), torch.tensor(quality))
+    for i, q in enumerate(quality):
+        np.testing.assert_allclose(got[i].numpy(),
+                                   tdiffjpeg.jpeg_np(x[i], q), rtol=0,
+                                   atol=1e-5)
+
+
 def test_jpeg_np_matches_native():
     """The JAX package's C++ JPEG helper computes the same round trip in
     its own float order: within 1e-6 (the largest difference is printed)."""

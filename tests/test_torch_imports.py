@@ -47,11 +47,14 @@ def test_package_has_modules():
             "data/degrade/camera_isp.py", "data/degrade/diffjpeg.py",
             "data/degrade/realesrgan.py", "data/degrade/bsrgan.py",
             "train/config.py", "train/events.py", "train/visuals.py",
-            "train/loop.py", "cli/train.py"} <= names
+            "train/loop.py", "cli/train.py", "parallel/__init__.py",
+            "parallel/distributed.py", "dryrun.py", "registry.py",
+            "data/val_stub.py", "data/degrade/paired.py",
+            "models/legacy_ocr.py", "cli/eval_metrics.py"} <= names
 
 
 @pytest.mark.parametrize("name", ["common", "test_sr", "test_w",
-                                  "serve_demo", "train"])
+                                  "serve_demo", "train", "eval_metrics"])
 def test_cli_reads_and_writes_without_cv2(name):
     """The CLIs replace the JAX tools' cv2 reads and writes and imageio's
     GIF with the port's PNG codec (and ``train`` the YAML and TensorBoard

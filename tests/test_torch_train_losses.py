@@ -110,3 +110,38 @@ def test_loss_matches_jax(case):
     rtol = 1e-4 if name == "ctc_loss" else 1e-5
     np.testing.assert_allclose(targs[0].grad.numpy(), want_g, rtol=rtol,
                                atol=1e-6 * scale)
+
+
+def _global_share(name: str, t: list, kwargs: dict) -> dict:
+    """The global-batch keywords of loss ``name`` over inputs ``t``: the
+    sums of its masks (``text_ce_loss``: of its label weights)."""
+    if name == "text_ce_loss":
+        return {"total": TL.text_ce_weights(
+            t[1], kwargs["num_classes"]).sum()}
+    if name == "hinge_d_loss":
+        return {"real_total": t[2].sum(), "fake_total": t[3].sum()} \
+            if len(t) == 4 else {}
+    mask_at = {"masked_mean": 1, "hinge_g_loss": 1}.get(name, 2)
+    return {"total": t[mask_at].sum()} if len(t) > mask_at else {}
+
+
+@pytest.mark.parametrize("case", sorted(set(CASES) - {"lr_to_center_width"}))
+def test_rank_shares_add_up_to_the_batch_loss(case):
+    """Data parallelism's rule: each loss over the two halves of its batch,
+    each half given the global mask sums and a world size of 2, adds up to
+    the loss over the whole batch (rtol 1e-5, atol 1e-6)."""
+    import inspect
+
+    name, make = CASES[case]
+    args, kwargs = make(np.random.default_rng(sorted(CASES).index(case)))
+    b = args[0].shape[0] // 2 * 2            # an even batch
+    t = [torch.from_numpy(np.asarray(a)[:b]) for a in args]
+    fn = getattr(TL, name)
+    whole = fn(*t, **kwargs)
+    share = _global_share(name, t, kwargs)
+    if "world" in inspect.signature(fn).parameters:
+        share["world"] = 2
+    halves = sum(fn(*[x[h] for x in t], **kwargs, **share)
+                 for h in (slice(0, b // 2), slice(b // 2, b)))
+    np.testing.assert_allclose(halves.numpy(), whole.numpy(), rtol=1e-5,
+                               atol=1e-6)
