@@ -106,6 +106,26 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    GiB of device memory a rank and 44.35 GiB for the one process at
    batch 4; phases 1-14 take 216.5 s.
 
+15. image input and the last tools: every JPEG fixture of
+   ``tests/data/jpeg/`` decoded by ``utils/jpeg.py`` equal to its committed
+   cv2 decode, with host ms a decode of the three timed ones; phase 12's
+   lines written as BMP (a writer in this script) through ``test_sr -m``,
+   ``serve_demo`` (front-end, ``--repeat`` 4) and ``test_w``, every output
+   file equal to phase 12's from PNG bit for bit, ``w.gif`` walked block
+   by block (11 frames of 10 hundredths, one NETSCAPE2.0 loop); the JPEG
+   fixtures through ``test_sr -m`` and ``serve_demo -m`` (each output at
+   its fixture's shape); ``parity_report`` twice at full width (f32) on
+   checkpoints in the reference's key names from the port's seeded nets,
+   a PNG and a JPEG line: ``NO_REFERENCE_OUTPUTS``, then ``PARITY``;
+   ``profile_sr`` (bf16, 16 x 8, 3 traced restores): the Chrome trace
+   parses and holds exactly 3 x 19 K1 and 3 x 2 K2 kernels by their CUDA
+   names, with the device-busy share and the five kernels with the most
+   time; ``crop_bg_patches`` on a seeded 1200 x 900 PNG and the 400 x 400
+   JPEG (8 patches); then one f32 training step's peak memory at batches
+   2 and 4, a linear fit, and one timed step at the largest batch the fit
+   puts under the card's memory (no out-of-memory error is caught). Exact
+   K1 / K2 (and in training K1b / K2 bwd) launches in every run.
+
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -121,7 +141,10 @@ import math
 import multiprocessing as mp
 import os
 import queue
+import shutil
 import socket
+import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -134,6 +157,9 @@ import torch
 import torch.nn.functional as F
 
 from marconet_tpu_torch import native
+from marconet_tpu_torch.cli import crop_bg_patches as cli_crop_bg_patches
+from marconet_tpu_torch.cli import parity_report as cli_parity_report
+from marconet_tpu_torch.cli import profile_sr as cli_profile_sr
 from marconet_tpu_torch.cli import serve_demo as cli_serve_demo
 from marconet_tpu_torch.cli import test_sr as cli_test_sr
 from marconet_tpu_torch.cli import test_w as cli_test_w
@@ -190,6 +216,8 @@ from marconet_tpu_torch.train.train_step import (
     TrainConfig,
     lr_at,
 )
+from marconet_tpu_torch.convert import REFERENCE_FILES
+from marconet_tpu_torch.utils.jpeg import read_jpeg
 from marconet_tpu_torch.utils.png import read_png, write_png
 
 SERVE_BATCH = 16    # bench.py's workload: 16 lines of 8 characters
@@ -2464,6 +2492,395 @@ def _dp_two_ranks(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# image input and the last tools: JPEG / BMP through the CLIs, test_w's GIF,
+# parity_report, profile_sr, crop_bg_patches, the largest training batch
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "jpeg")
+JPEG_TIMED = ("line_512x32_420", "line_1400x72_progressive", "bg_400x400")
+JPEG_REPEATS = 5
+GIF_DELAY_CS = 10
+PROFILE_ITERS = 3
+CROP_IMAGE = (900, 1200)            # (H, W) of the seeded PNG to mine
+CROP_PATCHES = 8                    # 3 scales x 2 + 1 scale x 2 (400 px)
+# one training step's peak device memory, fitted at batches 2 and 4 in this
+# phase: the largest batch is the largest B whose fitted peak fits the card
+FIT_BATCHES = (2, 4)
+
+
+def _write_bmp(path: str, rgb: np.ndarray) -> None:
+    """A 24-bit bottom-up BI_RGB BMP of an (H, W, 3) uint8 RGB image."""
+    h, w = rgb.shape[:2]
+    pitch = (3 * w + 3) & -4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    offset = 14 + 40
+    header = b"BM" + struct.pack("<IHHI", offset + rows.size, 0, 0, offset)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 0, 0,
+                       0, 0)
+    with open(path, "wb") as f:
+        f.write(header + info + rows.tobytes())
+
+
+def _same_files(got_dir: str, want_dir: str, what: str) -> int:
+    """Equal file names and bytes in two directories; returns the count."""
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        raise AssertionError(f"{what}: files {sorted(os.listdir(got_dir))}"
+                             f", expected {names}")
+    for name in names:
+        with open(os.path.join(got_dir, name), "rb") as a, \
+                open(os.path.join(want_dir, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{what}: {name} differs")
+    return len(names)
+
+
+def _gif_blocks(data: bytes) -> dict:
+    """Image descriptors, frame delays (hundredths of a second) and loop
+    extensions of a GIF89a, by walking its block structure."""
+    if data[:6] != b"GIF89a":
+        raise AssertionError("w.gif is not a GIF89a")
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    frames, delays, loops = 0, [], 0
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:
+            label = data[pos + 1]
+            if label == 0xF9:
+                delays.append(struct.unpack("<H", data[pos + 4:pos + 6])[0])
+            elif label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                loops += 1
+            pos = skip_sub_blocks(pos + 2)
+        elif kind == 0x2C:
+            frames += 1
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)          # LZW minimum code size
+        else:
+            raise AssertionError(f"w.gif: unknown block 0x{kind:02x}")
+    return {"frames": frames, "delays": delays, "loops": loops}
+
+
+def _collage_width(shape) -> int:
+    """The shown width of a line at 128 rows (``preprocess_line``)."""
+    h, w = shape[:2]
+    return int(round(w * (128 / h)))
+
+
+def _io_cli(smi: str, ckpt_dir: str, work: str, add) -> None:
+    """BMP copies of phase 12's lines through ``test_sr -m`` and
+    ``serve_demo`` (equal to phase 12's PNG outputs, bit for bit), the
+    JPEG fixtures through both, and ``test_w`` on two JPEG lines."""
+    lines_dir = os.path.join(work, "lines")
+    bmp_dir = os.path.join(work, "lines_bmp")
+    os.makedirs(bmp_dir)
+    for name in sorted(os.listdir(lines_dir)):
+        stem = os.path.splitext(name)[0]
+        _write_bmp(os.path.join(bmp_dir, stem + ".bmp"),
+                   read_png(os.path.join(lines_dir, name)))
+    common = ["--ckpt_dir", ckpt_dir, "--device", "cuda"]
+    out = os.path.join(work, "sr-m-bmp")
+    t0 = time.perf_counter()
+    done, got = _cli_counted(
+        "test_sr -m on BMP", lambda d: sum(r for _, _, r in d),
+        lambda: cli_test_sr.main(["-i", bmp_dir, "-o", out, "-m"] + common))
+    add(got)
+    n = _same_files(out, os.path.join(work, "sr-m"), "test_sr -m on BMP")
+    say(f"[io] test_sr -m on {len(done)} BMP lines: {n} collages equal to "
+        f"phase 12's from PNG, bit for bit ({time.perf_counter() - t0:.2f} "
+        "s)")
+    out = os.path.join(work, "serve-bmp")
+    res, got = _cli_counted(
+        f"serve_demo --repeat {CLI_REPEAT} on BMP",
+        lambda r: 2 * r["chunks"],
+        lambda: cli_serve_demo.main(["-i", bmp_dir, "-o", out, "--repeat",
+                                     str(CLI_REPEAT)] + common))
+    add(got)
+    n = _same_files(out, os.path.join(work, "serve"), "serve_demo on BMP")
+    say(f"[io] serve_demo (front-end, bf16) on BMP: {n} lines equal to "
+        f"phase 12's from PNG, bit for bit; warm {res['lines_per_s']:.2f} "
+        f"lines/s on {smi}")
+
+    jpeg_dir = os.path.join(work, "lines_jpeg")
+    os.makedirs(jpeg_dir)
+    shapes = {}
+    for name in sorted(os.listdir(JPEG_FIXTURES)):
+        if name.endswith(".jpg"):
+            shutil.copy(os.path.join(JPEG_FIXTURES, name), jpeg_dir)
+            shapes[name] = read_png(os.path.join(
+                JPEG_FIXTURES, name[:-4] + ".png")).shape
+    out = os.path.join(work, "sr-m-jpeg")
+    done, got = _cli_counted(
+        "test_sr -m on JPEG", lambda d: sum(r for _, _, r in d),
+        lambda: cli_test_sr.main(["-i", jpeg_dir, "-o", out, "-m"] + common))
+    add(got)
+    fits = sorted(n for n, s in shapes.items()
+                  if round(s[1] * 32 / s[0]) <= 512)
+    if sorted(d[0] for d in done) != fits:
+        raise AssertionError(f"test_sr on JPEG restored {done}, expected "
+                             f"{fits}")
+    _check_pngs([os.path.join(out, f"{os.path.splitext(n)[0]}_{t}.png")
+                 for n, t, _ in done],
+                [(4 * 128, _collage_width(shapes[n]), 3)
+                 for n, _, _ in done], "test_sr on JPEG")
+    # serve_demo, like the JAX tool, takes lines of at most 512 at 32 rows
+    fit_dir = os.path.join(work, "lines_jpeg_fit")
+    os.makedirs(fit_dir)
+    for name in fits:
+        shutil.copy(os.path.join(jpeg_dir, name), fit_dir)
+    out = os.path.join(work, "serve-jpeg")
+    res, got = _cli_counted(
+        "serve_demo -m on JPEG", lambda r: 2 * r["chunks"],
+        lambda: cli_serve_demo.main(["-i", fit_dir, "-o", out, "-m"]
+                                    + common))
+    add(got)
+    _check_pngs([os.path.join(out, f"{i:03d}_{os.path.splitext(m)[0]}.png")
+                 for i, m in enumerate(res["names"])],
+                [(128, _collage_width(shapes[m]), 3) for m in res["names"]],
+                "serve_demo on JPEG")
+    say(f"[io] JPEG fixtures: test_sr -m restored {len(done)} (the "
+        f"{len(shapes) - len(fits)} wider than 512 at 32 rows skipped, as "
+        f"the JAX tool skips it), serve_demo -m {len(res['names'])}; "
+        "every output at its fixture's shape")
+
+    # test_w on the BMP copies of phase 12's two lines: its 11 PNGs and
+    # w.gif equal phase 12's, and w.gif has the structure of an animation
+    out = os.path.join(work, "w-bmp")
+    names = sorted(os.listdir(bmp_dir))
+    w1, w2 = (os.path.join(bmp_dir, names[i]) for i in (0, CLI_COPIES))
+    _reset_counts()
+    t0 = time.perf_counter()
+    paths = cli_test_w.main(["-w1", w1, "-w2", w2, "-o", out] + common)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _counts()
+    _check_counts("io", got, {**dict.fromkeys(_WRAPPERS, 0),
+                              "fused_leaky_relu": 19}, "test_w on BMP")
+    add(got)
+    n = _same_files(out, os.path.join(work, "w"), "test_w on BMP")
+    if len(paths) != 11 or n != 12:
+        raise AssertionError(f"test_w wrote {len(paths)} blends, {n} files")
+    n_lab = read_png(paths[0]).shape[1] // 128
+    with open(os.path.join(out, "w.gif"), "rb") as f:
+        gif = _gif_blocks(f.read())
+    if gif != {"frames": 11, "delays": [GIF_DELAY_CS] * 11, "loops": 1}:
+        raise AssertionError(f"w.gif: {gif}")
+    say(f"[io] test_w on BMP: 11 PNGs of {n_lab} characters and w.gif "
+        f"(11 frames of {GIF_DELAY_CS} cs, one loop extension, "
+        f"{os.path.getsize(os.path.join(out, 'w.gif'))} bytes) equal to "
+        f"phase 12's from PNG; {seconds:.2f} s with the GIF")
+
+
+def _io_decode(smi: str) -> None:
+    """Every JPEG fixture decodes to its committed cv2 decode; host ms a
+    decode of the three timed ones."""
+    times = {}
+    for name in sorted(os.listdir(JPEG_FIXTURES)):
+        if not name.endswith(".jpg"):
+            continue
+        path = os.path.join(JPEG_FIXTURES, name)
+        want = read_png(path[:-4] + ".png")
+        got = read_jpeg(path)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{name}: decode differs from cv2's")
+        stem = name[:-4]
+        if stem in JPEG_TIMED:
+            ms = []
+            for _ in range(JPEG_REPEATS):
+                t0 = time.perf_counter()
+                read_jpeg(path)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[stem] = (statistics.median(ms), min(ms), got.shape)
+    say("[io] JPEG fixtures equal their cv2 decodes, byte for byte; host ms "
+        f"a decode (median / min of {JPEG_REPEATS}): " + ", ".join(
+            f"{k} {v[2][1]}x{v[2][0]} {v[0]:.2f} / {v[1]:.2f}"
+            for k, v in times.items())
+        + f"; os.cpu_count() {os.cpu_count()}; card {smi}")
+
+
+def _io_parity(work: str, add) -> None:
+    """``parity_report`` twice at full width (f32) on checkpoints in the
+    reference's key names from the port's own seeded nets, a PNG line and
+    a JPEG line: NO_REFERENCE_OUTPUTS, then PARITY against the goldens."""
+    ckpts = os.path.join(work, "parity_ckpts")
+    os.makedirs(ckpts)
+    net = MARCONet(device="cuda", seed=7)
+    for name, module in zip(REFERENCE_FILES,
+                            (net.encoder, net.prior, net.srnet)):
+        torch.save({"params": {k: v.cpu() for k, v in
+                               module.state_dict().items()}},
+                   os.path.join(ckpts, name))
+    del net
+    testset = os.path.join(work, "parity_testset")
+    os.makedirs(testset)
+    png_line = sorted(os.listdir(os.path.join(work, "lines")))[0]
+    shutil.copy(os.path.join(work, "lines", png_line), testset)
+    shutil.copy(os.path.join(JPEG_FIXTURES, "line_512x32_420.jpg"), testset)
+    goldens = os.path.join(work, "goldens_torch")
+    common = ["--ckpt_dir", ckpts, "--testset", testset, "--golden_dir",
+              goldens, "--device", "cuda"]
+    verdicts = []
+    for i, extra in enumerate(([], ["--ref_outputs", goldens])):
+        report = os.path.join(work, f"parity_report{i}.json")
+        t0 = time.perf_counter()
+        rep, got = _cli_counted(
+            f"parity_report run {i + 1}", lambda r: 2 * 2,
+            lambda: cli_parity_report.main(common + ["--report", report]
+                                           + extra))
+        add(got)
+        with open(report) as f:
+            if json.load(f) != json.loads(json.dumps(rep)):
+                raise AssertionError("parity_report: the JSON report is "
+                                     "not the returned one")
+        verdicts.append((rep["verdict"], rep.get("mean_psnr_vs_reference"),
+                         time.perf_counter() - t0))
+    if [v[0] for v in verdicts] != ["NO_REFERENCE_OUTPUTS", "PARITY"]:
+        raise AssertionError(f"parity_report verdicts {verdicts}")
+    bands = sorted(os.listdir(goldens))
+    for name in bands:
+        if read_png(os.path.join(goldens, name)).shape != (128, 2048, 3):
+            raise AssertionError(f"golden {name} is not a 128 x 2048 band")
+    say(f"[io] parity_report (f32, full width, a PNG and a JPEG line): "
+        f"{verdicts[0][0]} ({verdicts[0][2]:.2f} s), then {verdicts[1][0]} "
+        f"at {verdicts[1][1]} dB ({verdicts[1][2]:.2f} s); goldens {bands}")
+
+
+def _io_profile(smi: str, work: str, add) -> None:
+    """``profile_sr`` (bf16, 16 lines x 8 slots, 3 traced restores): the
+    Chrome trace parses and its device kernels include exactly 3 x 19 K1
+    and 3 x 2 K2 launches by their CUDA function names."""
+    path, got = _cli_counted(
+        "profile_sr (1 warm-up + 3 traced restores)",
+        lambda r: 1 + PROFILE_ITERS,
+        lambda: cli_profile_sr.main(["-o", os.path.join(work, "profile"),
+                                     "--iters", str(PROFILE_ITERS)]))
+    add(got)
+    with open(path) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    k1 = sum("fused_lrelu_fwd_kernel" in e["name"] for e in kernels)
+    k2 = sum("sft_writeback_kernel" in e["name"] for e in kernels)
+    want = (PROFILE_ITERS * RESTORE_LAUNCHES["fused_leaky_relu"],
+            PROFILE_ITERS * RESTORE_LAUNCHES["sft_writeback"])
+    if (k1, k2) != want:
+        raise AssertionError(f"profile_sr trace: {k1} K1 and {k2} K2 "
+                             f"kernels, expected {want}")
+    idle = _trace_idle(path)
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    say(f"[io] profile_sr trace {os.path.getsize(path)} bytes: {k1} K1 and "
+        f"{k2} K2 kernels in {PROFILE_ITERS} restores; device busy "
+        f"{idle['busy']:.2f} of {idle['window']:.2f} ms "
+        f"({100 * idle['busy'] / idle['window']:.2f}%); top kernels by self "
+        "time: " + "; ".join(f"{k[:70]} {v:.2f} ms" for k, v in top)
+        + f"; on {smi}")
+
+
+def _io_crop(work: str) -> None:
+    """``crop_bg_patches`` on a seeded 1200 x 900 PNG and the 400 x 400
+    JPEG fixture."""
+    src = os.path.join(work, "crop_in")
+    os.makedirs(src)
+    gen = np.random.default_rng(15)
+    write_png(os.path.join(src, "seeded.png"),
+              gen.integers(0, 256, CROP_IMAGE + (3,), dtype=np.uint8))
+    shutil.copy(os.path.join(JPEG_FIXTURES, "bg_400x400.jpg"), src)
+    t0 = time.perf_counter()
+    paths = cli_crop_bg_patches.main(["-i", src, "-o",
+                                      os.path.join(work, "crop_out")])
+    seconds = time.perf_counter() - t0
+    if len(paths) != CROP_PATCHES:
+        raise AssertionError(f"crop_bg_patches wrote {len(paths)} patches")
+    _check_pngs(paths, [(400, 400, 3)] * len(paths), "crop_bg_patches")
+    say(f"[io] crop_bg_patches: {len(paths)} patches of 400 x 400 x 3 from "
+        f"a {CROP_IMAGE[1]} x {CROP_IMAGE[0]} PNG and the 400 x 400 JPEG in "
+        f"{seconds:.2f} s (host)")
+
+
+def _io_largest_batch(smi: str, add) -> None:
+    """One f32 training step at the largest batch whose peak memory, fitted
+    linearly to steps at batches 2 and 4, fits the card."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    trainer = MARCONetTrainer(TrainConfig(), device=dev, seed=0,
+                              allow_random_lpips=True)
+    gen = np.random.default_rng(16)
+    peaks = {}
+    _reset_counts()
+    for b in FIT_BATCHES:
+        batch = TrainBatch.from_numpy(_train_arrays(gen, b, TRAIN_SLOTS),
+                                      dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del batch
+    (b0, p0), (b1, p1) = peaks.items()
+    slope = (p1 - p0) / (b1 - b0)
+    base = p0 - slope * b0
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    largest = int((total - base) // slope)
+    say(f"[io] training step peak memory: {p0:.2f} GiB at B={b0}, {p1:.2f} "
+        f"GiB at B={b1}: fit {base:.2f} + {slope:.2f} B GiB; card "
+        f"{total:.2f} GiB -> largest B={largest} (fit "
+        f"{base + slope * largest:.2f} GiB)")
+    batch = TrainBatch.from_numpy(_train_arrays(gen, largest, TRAIN_SLOTS),
+                                  dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.train_step(batch)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    got = _counts()
+    steps = len(FIT_BATCHES) + 2
+    _check_counts("io", got, {k: v * steps for k, v in
+                              TRAIN_LAUNCHES.items()},
+                  f"{steps} training steps")
+    add(got)
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v)):
+            raise AssertionError(f"non-finite {k} at B={largest}")
+    say(f"[io] f32 train_step at B={largest} x {TRAIN_SLOTS} slots: peak "
+        f"{peak:.2f} GiB of {total:.2f}, {seconds * 1e3:.2f} ms = "
+        f"{largest / seconds:.3f} samples/s (host clock, one step after a "
+        f"warm-up) on {smi}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+
+def phase_io_tools(smi: str, ckpt_dir: str, work: str) -> dict:
+    """Phase 15 (see the module docstring). Returns its kernel launches."""
+    launches = dict.fromkeys(_WRAPPERS, 0)
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    _io_decode(smi)
+    _io_cli(smi, ckpt_dir, work, add)
+    _io_parity(work, add)
+    _io_profile(smi, work, add)
+    _io_crop(work)
+    _io_largest_batch(smi, add)
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2481,19 +2898,22 @@ def main() -> None:
         os.makedirs(ckpt_dir)
         phase_frontend(smi, ckpt_dir)
         cli = phase_cli(smi, ckpt_dir, work)
-    say(f"[smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s")
-    loop = phase_loop(smi, bare_rate)
-    say(f"[smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s")
-    t14 = time.perf_counter()
-    dp = phase_dp(smi, bare_rate)
-    say(f"[smoke] phase 14 in {time.perf_counter() - t14:.1f} s")
+        say(f"[smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s")
+        loop = phase_loop(smi, bare_rate)
+        say(f"[smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s")
+        t14 = time.perf_counter()
+        dp = phase_dp(smi, bare_rate)
+        say(f"[smoke] phase 14 in {time.perf_counter() - t14:.1f} s")
+        t15 = time.perf_counter()
+        io = phase_io_tools(smi, ckpt_dir, work)
+        say(f"[smoke] phase 15 in {time.perf_counter() - t15:.1f} s")
     kernels = [dict(name=name, **KERNELS[name],
                     launches=k3[name] + serve[name] + page[name]
                     + train_launches[name] + cli[name] + loop[name]
-                    + dp[name],
+                    + dp[name] + io[name],
                     **report[name])
                for name in KERNELS]
-    say(f"[smoke] phases 1-14 in {time.perf_counter() - t0:.1f} s")
+    say(f"[smoke] phases 1-15 in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

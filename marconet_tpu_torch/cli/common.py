@@ -9,19 +9,27 @@ import numpy as np
 import torch
 
 from marconet_tpu_torch.models.frontend import CharacterFrontend
-from marconet_tpu_torch.utils.png import read_png
+from marconet_tpu_torch.utils.imread import imread
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the file names the JAX tools take as images (tools/serve_demo.py:65,
+# tools/parity_report.py:54)
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
 def read_image(path: str) -> Optional[np.ndarray]:
-    """An (H, W, 3) uint8 RGB image, or None after a warning that names
-    the file when it is not a PNG the codec reads."""
+    """An (H, W, 3) uint8 RGB image read as ``cv2.imread`` reads it
+    (``utils/imread.py``: PNG, JPEG, BMP), or None after a warning that
+    names the file when cv2 would give None or the port reads no such
+    file."""
     try:
-        return read_png(path)
-    except (ValueError, OSError) as e:
-        print(f"WARNING: skipping {path}: {e} (input is PNG only)")
+        img = imread(path)
+    except ValueError as e:
+        print(f"WARNING: skipping {path}: {e}")
         return None
+    if img is None:
+        print(f"WARNING: skipping {path}: not a readable image")
+    return img
 
 
 def load_frontend(ckpt_dir: str, device) -> Optional[CharacterFrontend]:

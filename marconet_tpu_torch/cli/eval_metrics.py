@@ -4,8 +4,9 @@
     python -m marconet_tpu_torch.cli.eval_metrics -a SR_DIR -b GT_DIR \
         [--border N] [--y_channel]
 
-For every file name the two directories share: the PNG pair (the port's
-codec; other files are named in a warning and skipped), the second image
+For every file name the two directories share: the image pair, read as
+``cv2.imread`` reads it (``cli/common.read_image``: PNG, JPEG, BMP; a file
+that cannot be read is named in a warning and skipped), the second image
 resized to the first's size by OpenCV's uint8 ``INTER_CUBIC``
 (``utils/image.resize_cubic_u8``) when they differ, then PSNR and SSIM
 (``utils/image.calculate_psnr`` / ``calculate_ssim``, the reference's

@@ -20,6 +20,7 @@ import time
 
 from marconet_tpu_torch.cli.common import (
     DTYPES,
+    IMAGE_EXTENSIONS,
     load_frontend,
     read_image,
     text_from_name,
@@ -29,8 +30,6 @@ from marconet_tpu_torch.models.pipeline import MARCONet
 from marconet_tpu_torch.serve import LineRequest, TextPageRestorer
 from marconet_tpu_torch.utils.png import write_png
 
-# the other inputs the JAX tool reads through cv2 (tools/serve_demo.py:65)
-OTHER_IMAGES = (".jpg", ".jpeg", ".bmp")
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -51,18 +50,13 @@ def parser() -> argparse.ArgumentParser:
 
 def serve_dir(net: MARCONet, frontend, test_path: str, save_path: str,
               repeat: int = 1) -> dict:
-    """Restore every PNG line in ``test_path`` twice through the page
-    server (the first pass includes warm-up) and write the second pass's
-    lines as ``<index>_<stem>.png``; texts from the file names when
+    """Restore every PNG, JPEG or BMP line in ``test_path`` twice through
+    the page server (the first pass includes warm-up) and write the second
+    pass's lines as ``<index>_<stem>.png``; texts from the file names when
     ``frontend`` is None. Returns the results and both passes' times."""
     requests, names = [], []
     for fname in sorted(os.listdir(test_path)):
-        ext = os.path.splitext(fname)[1].lower()
-        if ext in OTHER_IMAGES:
-            print(f"WARNING: skipping {fname}: not a PNG (input is PNG "
-                  "only)")
-            continue
-        if ext != ".png":
+        if not fname.lower().endswith(IMAGE_EXTENSIONS):
             continue
         img = read_image(os.path.join(test_path, fname))
         if img is None:

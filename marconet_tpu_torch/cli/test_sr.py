@@ -84,10 +84,10 @@ def _text_and_locs(net: MARCONet, frontend, img: np.ndarray, lq, name: str
 
 def restore_dir(net: MARCONet, frontend, test_path: str, save_path: str
                 ) -> List[Tuple[str, str, int]]:
-    """Restore every PNG line in ``test_path`` and write its collage to
-    ``save_path`` as ``<stem>_<text>.png`` (a ``/`` of the text written
-    as ``_``); manual mode when ``frontend`` is None. Returns (file name,
-    text, restores) per written collage."""
+    """Restore every line image in ``test_path`` (any file ``read_image``
+    reads) and write its collage to ``save_path`` as ``<stem>_<text>.png``
+    (a ``/`` of the text written as ``_``); manual mode when ``frontend``
+    is None. Returns (file name, text, restores) per written collage."""
     done = []
     for img_name in sorted(os.listdir(test_path)):
         path = os.path.join(test_path, img_name)

@@ -4,8 +4,9 @@ Counterpart of ``marconet_tpu/data/synth.py`` with the same random draws
 in the same order, everything but the glyph rendering: ``render`` draws
 text with PIL and a TrueType font in the JAX package, and the card's
 machine has no PIL and the repository no font pack, so here it raises
-(subclasses provide a renderer). Backgrounds are read as PNG with
-``utils/png.py``; the resizes are ``utils/image.resize``.
+(subclasses provide a renderer). Backgrounds are read as cv2 reads them
+(``utils/imread.py``), with the flat fallback wherever cv2 gives None;
+the resizes are ``utils/image.resize``.
 
 Behavioural port of the reference's ``TextDegradationDataset``
 (``Train/tspgan/data/text_degradation_dataset.py:23-435``) re-organized for
@@ -35,7 +36,6 @@ from __future__ import annotations
 
 import os
 import string
-import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -53,7 +53,7 @@ from marconet_tpu_torch.utils.image import (
     INTER_LINEAR,
     resize,
 )
-from marconet_tpu_torch.utils.png import read_png
+from marconet_tpu_torch.utils.imread import imread
 
 CHECK_NUM = 16
 GT_H, GT_W = 128, 128 * CHECK_NUM
@@ -121,13 +121,8 @@ class TextLineSynthesizer:
 
         self.bg_paths = []
         if config.bg_dir and os.path.isdir(config.bg_dir):
-            names = sorted(os.listdir(config.bg_dir))
-            skipped = [n for n in names if not n.lower().endswith(".png")]
-            if skipped:
-                warnings.warn(f"{config.bg_dir}: only PNG backgrounds are "
-                              f"read; skipping {skipped}")
-            self.bg_paths = [os.path.join(config.bg_dir, n) for n in names
-                             if n.lower().endswith(".png")]
+            self.bg_paths = [os.path.join(config.bg_dir, f)
+                             for f in sorted(os.listdir(config.bg_dir))]
 
     # -- text sampling -----------------------------------------------------
 
@@ -191,9 +186,8 @@ class TextLineSynthesizer:
             base = rng.uniform(0.2, 1.0, 3).astype(np.float32)
             return np.broadcast_to(base, (GT_H, GT_W, 3)).copy()
         path = self.bg_paths[int(rng.integers(0, len(self.bg_paths)))]
-        try:
-            img = read_png(path)
-        except (OSError, ValueError):    # cv2.imread's None
+        img = imread(path)
+        if img is None:
             base = rng.uniform(0.2, 1.0, 3).astype(np.float32)
             return np.broadcast_to(base, (GT_H, GT_W, 3)).copy()
         img = img.astype(np.float32) / 255.0

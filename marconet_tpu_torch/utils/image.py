@@ -277,10 +277,11 @@ def _interp_taps(n_out: int, n_in: int, mode: int, clamp_edges: bool):
     return idx, w.astype(np.float32)
 
 
-def _area_taps(n_out: int, n_in: int):
-    """OpenCV's ``computeResizeAreaTab`` for a fractional downscale, as
+def _area_taps(n_out: int, n_in: int, scale: Optional[float] = None):
+    """OpenCV's ``computeResizeAreaTab`` for a fractional downscale by
+    ``scale`` source pixels an output pixel (default n_in / n_out), as
     (n_out, K) source indices and f32 weights (unused taps weigh 0)."""
-    scale = n_in / n_out
+    scale = n_in / n_out if scale is None else scale
     rows = []
     for dx in range(n_out):
         fsx1 = dx * scale
@@ -393,6 +394,60 @@ def resize(img: np.ndarray, size: Tuple[int, int], mode: int
     rows = _apply_taps(img, *_interp_taps(out_w, w, mode, True), axis=1)
     return _apply_taps(rows, *_interp_taps(out_h, h, mode, False), axis=0,
                        nested=mode in (INTER_CUBIC, INTER_LANCZOS4))
+
+
+def resize_area_u8(img: np.ndarray, factor: float) -> np.ndarray:
+    """``cv2.resize(img, (0, 0), fx=factor, fy=factor,
+    interpolation=cv2.INTER_AREA)`` for an (H, W, C) uint8 image and a
+    factor at most 1, to the byte.
+
+    Output size ``cvRound(W * factor)`` by ``cvRound(H * factor)``; the
+    source cell of an output pixel is ``1 / factor`` wide (not W / W'),
+    as cv2 takes it from ``fx``. An integer ``1 / factor`` averages whole
+    blocks: 2 x 2 blocks in integers rounded half up (OpenCV's SIMD
+    path), larger ones as a sum times ``1 / area`` in f32 rounded half to
+    even (its scalar path), and the blocks cut by the image's edge by
+    their pixel count in f32, rounded half to even.
+    Another factor goes through the f32 area tables of :func:`resize`
+    with that cell width, rounded half to even.
+    """
+    h, w = img.shape[:2]
+    c = img.reshape(h, w, -1).shape[2]
+    out_w, out_h = int(round(w * factor)), int(round(h * factor))
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    if factor > 1 or out_w <= 0 or out_h <= 0:
+        raise ValueError(f"resize_area_u8 shrinks, got factor {factor} "
+                         f"for a {img.shape} image")
+    scale = 1.0 / factor
+    k = int(round(scale))
+    src = img.reshape(h, w, c)
+    if abs(scale - k) >= np.finfo(float).eps:
+        f = src.astype(np.float32)
+        rows = _apply_taps(f, *_area_taps(out_w, w, scale), axis=1)
+        out = _apply_taps(rows, *_area_taps(out_h, h, scale), axis=0)
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8) \
+            .reshape((out_h, out_w) + img.shape[2:])
+    # pad to whole blocks; a pixel outside the image counts 0 times
+    ph, pw = out_h * k, out_w * k
+    padded = np.zeros((max(ph, h), max(pw, w), c), np.int64)
+    padded[:h, :w] = src
+    inside = np.zeros((max(ph, h), max(pw, w)), np.int64)
+    inside[:h, :w] = 1
+    sums = padded[:ph, :pw].reshape(out_h, k, out_w, k, c).sum((1, 3))
+    counts = inside[:ph, :pw].reshape(out_h, k, out_w, k).sum((1, 3))
+    area = k * k
+    if k == 2:                 # the SIMD path: (a + b + c + d + 2) >> 2
+        out = (sums + 2) >> 2
+    else:                      # the scalar path: sum * (1 / area) in f32
+        out = np.rint(sums.astype(np.float32) * np.float32(1.0 / area)) \
+            .astype(np.int64)
+    cut = counts < area
+    part = sums[cut].astype(np.float32) / \
+        np.repeat(counts[cut][:, None], c, 1).astype(np.float32)
+    out[cut] = np.rint(part).astype(np.int64)
+    return np.clip(out, 0, 255).astype(np.uint8) \
+        .reshape((out_h, out_w) + img.shape[2:])
 
 
 _DFT_FILTER_AREA = 130   # cv::filter2D correlates f32 by DFT from here

@@ -5,14 +5,18 @@ The CLIs of the JAX package read and write images through cv2
 card's machine has neither cv2 nor PIL, so the port's CLIs use this codec.
 
 :func:`read_png` returns what ``cv2.cvtColor(cv2.imread(path,
-cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)`` returns for the PNGs it accepts:
-an (H, W, 3) uint8 RGB image, with alpha dropped (not blended), gray
-replicated into three channels and palettes expanded. It accepts 8-bit
-gray, gray + alpha, RGB and RGBA, and gray or palette images of 1, 2, 4
-or 8 bits, non-interlaced, with any of the five row filters and the image
-data split over any number of IDAT chunks; every chunk's CRC is checked.
-Anything else (16 bits, interlacing, another format) raises a
-``ValueError`` that names the file.
+cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)`` returns: an (H, W, 3) uint8 RGB
+image, with alpha dropped (not blended), gray replicated into three
+channels and palettes expanded. It accepts every PNG colour type at every
+bit depth (gray of 1, 2, 4, 8 or 16 bits, palettes of 1-8 bits, RGB, gray
++ alpha and RGBA of 8 or 16 bits), 16-bit samples reduced to their high
+byte as cv2 reduces them (libpng's ``png_set_strip_16``), non-interlaced
+or Adam7-interlaced, with any of the five row filters and the image data
+split over any number of IDAT chunks; every critical chunk's CRC is
+checked (an ancillary chunk with a bad one is dropped, as libpng drops
+it). A file that is no PNG, or a corrupt one, raises
+:class:`CorruptImage`, a ``ValueError`` that names the file (cv2 returns
+None for it).
 
 :func:`write_png` writes an (H, W, 3) uint8 RGB image as an 8-bit RGB PNG
 in one IDAT chunk, every row unfiltered.
@@ -27,8 +31,16 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (channels, allowed bit depths)
-_COLOR_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
-                4: (2, (8,)), 6: (4, (8,))}
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+                3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+class CorruptImage(ValueError):
+    """A file that is not a readable image of its format, which
+    ``cv2.imread`` does not decode either (it returns None)."""
 
 
 def _chunks(data: bytes, path: str):
@@ -36,20 +48,23 @@ def _chunks(data: bytes, path: str):
     pos = len(SIGNATURE)
     while pos < len(data):
         if pos + 8 > len(data):
-            raise ValueError(f"{path}: truncated PNG chunk header")
+            raise CorruptImage(f"{path}: truncated PNG chunk header")
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 8 + length
         if end + 4 > len(data):
-            raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
+            raise CorruptImage(f"{path}: truncated PNG chunk {kind!r}")
         payload = data[pos + 8:end]
         (crc,) = struct.unpack(">I", data[end:end + 4])
-        if zlib.crc32(kind + payload) != crc:
-            raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
-        yield kind, payload
+        if zlib.crc32(kind + payload) == crc:
+            yield kind, payload
+        elif kind[:1].isupper():
+            # libpng's default: an error in a critical chunk; an ancillary
+            # chunk with a bad CRC is dropped with a warning
+            raise CorruptImage(f"{path}: bad CRC in PNG chunk {kind!r}")
         if kind == b"IEND":
             return
         pos = end + 4
-    raise ValueError(f"{path}: PNG without IEND")
+    raise CorruptImage(f"{path}: PNG without IEND")
 
 
 def _paeth_row(raw: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
@@ -76,12 +91,14 @@ def _average_row(raw: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def _unfilter(stream: bytes, height: int, stride: int, bpp: int,
-              path: str) -> np.ndarray:
-    """Filtered scanlines -> (height, stride) raw bytes."""
-    if len(stream) < height * (stride + 1):
-        raise ValueError(f"{path}: PNG image data too short")
-    rows = np.frombuffer(stream, np.uint8)[:height * (stride + 1)] \
+def _unfilter(stream: bytes, start: int, height: int, stride: int,
+              bpp: int, path: str) -> np.ndarray:
+    """Filtered scanlines from ``stream[start:]`` -> (height, stride) raw
+    bytes."""
+    end = start + height * (stride + 1)
+    if len(stream) < end:
+        raise CorruptImage(f"{path}: PNG image data too short")
+    rows = np.frombuffer(stream, np.uint8)[start:end] \
         .reshape(height, stride + 1)
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
@@ -100,7 +117,7 @@ def _unfilter(stream: bytes, height: int, stride: int, bpp: int,
         elif kind == 4:
             row = _paeth_row(raw, prior, bpp)
         else:
-            raise ValueError(f"{path}: unknown PNG filter type {kind}")
+            raise CorruptImage(f"{path}: unknown PNG filter type {kind}")
         out[y] = row
         prior = out[y]
     return out
@@ -108,9 +125,13 @@ def _unfilter(stream: bytes, height: int, stride: int, bpp: int,
 
 def _unpack(rows: np.ndarray, width: int, channels: int, depth: int
             ) -> np.ndarray:
-    """(H, stride) bytes -> (H, W, channels) samples (uint8); depths
-    below 8 bits come with one channel only."""
+    """(H, stride) bytes -> (H, W, channels) samples (uint8); 16-bit
+    samples keep their high byte, depths below 8 bits come with one
+    channel only."""
     h = rows.shape[0]
+    if depth == 16:
+        return rows[:, :2 * width * channels].reshape(
+            h, width, channels, 2)[..., 0]
     if depth == 8:
         return rows[:, :width * channels].reshape(h, width, channels)
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
@@ -123,8 +144,13 @@ def read_png(path: str) -> np.ndarray:
     docstring for what is accepted)."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_png(data, str(path))
+
+
+def decode_png(data: bytes, path: str = "<PNG bytes>") -> np.ndarray:
+    """:func:`read_png` of a file's bytes; ``path`` names it in errors."""
     if not data.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise CorruptImage(f"{path}: not a PNG file")
     header, palette, idat = None, None, []
     for kind, payload in _chunks(data, path):
         if kind == b"IHDR":
@@ -134,32 +160,37 @@ def read_png(path: str) -> np.ndarray:
         elif kind == b"IDAT":
             idat.append(payload)
     if header is None or not idat:
-        raise ValueError(f"{path}: PNG without IHDR or IDAT")
+        raise CorruptImage(f"{path}: PNG without IHDR or IDAT")
     width, height, depth, color, compression, filt, interlace = header
     if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
-        raise ValueError(f"{path}: PNG of {depth} bits, colour type "
-                         f"{color} is not supported (8-bit gray, gray + "
-                         "alpha, RGB, RGBA; gray or palette of 1-8 bits)")
-    if interlace != 0:
-        raise ValueError(f"{path}: interlaced PNGs are not supported")
-    if compression != 0 or filt != 0:
-        raise ValueError(f"{path}: unknown PNG compression or filter "
-                         "method")
+        raise CorruptImage(f"{path}: PNG of {depth} bits, colour type "
+                           f"{color} is not a valid PNG")
+    if compression != 0 or filt != 0 or interlace not in (0, 1):
+        raise CorruptImage(f"{path}: unknown PNG compression, filter or "
+                           "interlace method")
     channels = _COLOR_TYPES[color][0]
-    bits = width * channels * depth
-    stride, bpp = (bits + 7) // 8, max(1, channels * depth // 8)
     try:
         stream = zlib.decompress(b"".join(idat))
     except zlib.error as e:
-        raise ValueError(f"{path}: corrupt PNG image data ({e})") from e
-    samples = _unpack(_unfilter(stream, height, stride, bpp, path), width,
-                      channels, depth)
+        raise CorruptImage(f"{path}: corrupt PNG image data ({e})") from e
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.zeros((height, width, channels if depth >= 8 else 1),
+                       np.uint8)
+    start, bpp = 0, max(1, channels * depth // 8)
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue                    # an empty pass has no scanlines
+        stride = (w * channels * depth + 7) // 8
+        rows = _unfilter(stream, start, h, stride, bpp, path)
+        samples[y0::dy, x0::dx] = _unpack(rows, w, channels, depth)
+        start += h * (stride + 1)
     if color == 3:
         if palette is None:
-            raise ValueError(f"{path}: palette PNG without PLTE")
+            raise CorruptImage(f"{path}: palette PNG without PLTE")
         idx = samples[..., 0]
         if int(idx.max(initial=0)) >= len(palette):
-            raise ValueError(f"{path}: palette index out of range")
+            raise CorruptImage(f"{path}: palette index out of range")
         return palette[idx]
     if color in (0, 4):
         gray = samples[..., :1]

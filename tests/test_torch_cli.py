@@ -27,13 +27,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from PIL import Image
 
 import marconet_tpu.models.pipeline as jpipeline
 from marconet_tpu import serve as jserve
 from marconet_tpu.models import frontend as jfrontend
 from marconet_tpu_torch import convert, serve
 from marconet_tpu_torch.alphabet import alphabet
-from marconet_tpu_torch.cli import common, serve_demo, test_sr, test_w
+from marconet_tpu_torch.cli import (
+    common,
+    eval_metrics,
+    serve_demo,
+    test_sr,
+    test_w,
+)
 from marconet_tpu_torch.convert import (
     encoder_from_jax,
     prior_from_jax,
@@ -150,7 +157,7 @@ def port_net(monkeypatch, nets):
 def _compare_dirs(got_dir, want_dir):
     """Equal PNG file names and shapes; returns the largest level
     difference and the share of pixels that differ."""
-    got_names = sorted(os.listdir(got_dir))
+    got_names = sorted(n for n in os.listdir(got_dir) if n.endswith(".png"))
     want_names = sorted(n for n in os.listdir(want_dir)
                         if n.endswith(".png"))
     assert got_names == want_names
@@ -194,9 +201,10 @@ def test_test_sr_matches_jax(monkeypatch, no_ipp, jax_tools, port_net,
 
 def test_test_w_matches_jax(monkeypatch, no_ipp, jax_tools, port_net,
                             lines, tmp_path):
-    """The 11 blends (the JAX tool's GIF aside, which the port does not
-    write): same names, pixels within one level on at most
-    ``MAX_SHARE`` (measured: 2.8e-4)."""
+    """The 11 blends: same names, pixels within one level on at most
+    ``MAX_SHARE`` (measured: 2.8e-4); both write ``w.gif``, the port's
+    with 11 frames of 100 ms, looping (``tests/test_torch_gif.py`` holds
+    its palette error to imageio's)."""
     names = sorted(os.listdir(lines))
     w1, w2 = (os.path.join(lines, n) for n in names[:2])
     want_dir, got_dir = tmp_path / "jax", tmp_path / "port"
@@ -206,6 +214,9 @@ def test_test_w_matches_jax(monkeypatch, no_ipp, jax_tools, port_net,
                          "--device", "cpu"])
     assert len(paths) == test_w.STEPS == 11
     assert os.path.exists(want_dir / "w.gif")
+    gif = Image.open(got_dir / "w.gif")
+    assert gif.n_frames == 11 and gif.info["duration"] == 100 \
+        and gif.info["loop"] == 0
     levels, share = _compare_dirs(str(got_dir), str(want_dir))
     assert levels <= MAX_LEVELS and share <= MAX_SHARE, (levels, share)
 
@@ -234,8 +245,11 @@ def test_serve_demo_matches_jax(monkeypatch, no_ipp, jax_tools, port_net,
 
 def test_non_png_inputs_are_named_and_skipped(port_net, lines, tmp_path,
                                               capsys):
-    """A JPEG, a BMP name and a broken PNG are named in a warning and
-    skipped by both reading CLIs; the PNG lines still run."""
+    """A JPEG and a BMP are read as cv2 reads them (they used to be
+    skipped); a broken PNG and a GIF (a format cv2 reads and the port
+    leaves out) are named in a warning and skipped by ``test_sr``;
+    ``serve_demo`` takes .png / .jpg / .jpeg / .bmp names only, as the
+    JAX tool does, and names the broken PNG."""
     d = tmp_path / "in"
     d.mkdir()
     for name in sorted(os.listdir(lines))[:1]:
@@ -244,16 +258,97 @@ def test_non_png_inputs_are_named_and_skipped(port_net, lines, tmp_path,
     (d / "photo_AB.jpg").write_bytes(cv2.imencode(".jpg", img)[1].tobytes())
     (d / "scan_AB.bmp").write_bytes(cv2.imencode(".bmp", img)[1].tobytes())
     (d / "broken_AB.png").write_bytes(b"\x89PNG\r\n\x1a\nrest")
+    Image.fromarray(img).save(d / "anim_AB.gif")
     done = test_sr.restore_dir(port_net, None, str(d), str(tmp_path))
-    assert len(done) == 1
+    assert sorted(n for n, _, _ in done) == sorted(
+        os.listdir(lines))[:1] + ["photo_AB.jpg", "scan_AB.bmp"]
     out = capsys.readouterr().out
-    for name in ("photo_AB.jpg", "scan_AB.bmp", "broken_AB.png"):
-        assert f"skipping {d / name}" in out or f"skipping {name}" in out
+    for name in ("anim_AB.gif", "broken_AB.png"):
+        assert f"skipping {d / name}" in out, out
+    assert "GIF" in out
     served = serve_demo.serve_dir(port_net, None, str(d), str(tmp_path))
-    assert len(served["results"]) == 1
+    assert len(served["results"]) == 3
     out = capsys.readouterr().out
-    assert "photo_AB.jpg" in out and "scan_AB.bmp" in out \
-        and "broken_AB.png" in out
+    assert f"skipping {d / 'broken_AB.png'}" in out and "anim_AB" not in out
+
+
+@pytest.fixture(scope="module")
+def other_formats(lines, tmp_path_factory):
+    """The three lines as a JPEG, a BMP and a ``.jpeg`` (``mixed``), and
+    all three as BMPs of the same pixels (``bmp``)."""
+    mixed = tmp_path_factory.mktemp("mixed")
+    bmp = tmp_path_factory.mktemp("bmp")
+    for name, ext in zip(sorted(os.listdir(lines)), (".jpg", ".bmp",
+                                                      ".jpeg")):
+        stem = os.path.splitext(name)[0]
+        bgr = cv2.imread(os.path.join(lines, name))
+        cv2.imwrite(str(mixed / (stem + ext)), bgr,
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        cv2.imwrite(str(bmp / (stem + ".bmp")), bgr)
+    return {"mixed": str(mixed), "bmp": str(bmp)}
+
+
+@pytest.mark.parametrize("tool", ["test_sr", "serve_demo"])
+def test_jpeg_and_bmp_inputs_match_jax(monkeypatch, no_ipp, jax_tools,
+                                       port_net, other_formats, tmp_path,
+                                       tool):
+    """JPEG, BMP and ``.jpeg`` lines through ``test_sr -m`` and
+    ``serve_demo -m`` (f32): the JAX tools read them with cv2, the port
+    with ``utils/imread.py``; same files, pixels within one level on at
+    most ``MAX_SHARE``."""
+    src = other_formats["mixed"]
+    argv = ["-i", src, "-m"] + (["--dtype", "float32"]
+                                if tool == "serve_demo" else [])
+    want_dir, got_dir = tmp_path / "jax", tmp_path / "port"
+    _run_jax(monkeypatch, jax_tools[tool], argv + ["-o", str(want_dir)])
+    module = {"test_sr": test_sr, "serve_demo": serve_demo}[tool]
+    out = module.main(argv + ["-o", str(got_dir), "--device", "cpu"])
+    assert len(out if tool == "test_sr" else out["results"]) == 3
+    levels, share = _compare_dirs(str(got_dir), str(want_dir))
+    assert levels <= MAX_LEVELS and share <= MAX_SHARE, (levels, share)
+
+
+@pytest.mark.parametrize("tool", ["test_sr", "serve_demo"])
+def test_bmp_outputs_equal_png_outputs(port_net, lines, other_formats,
+                                       tmp_path, tool):
+    """The same pixels as BMP and as PNG give the same output files, byte
+    for byte."""
+    module = {"test_sr": test_sr, "serve_demo": serve_demo}[tool]
+    extra = ["--dtype", "float32"] if tool == "serve_demo" else []
+    for fmt, src in (("png", lines), ("bmp", other_formats["bmp"])):
+        module.main(["-i", src, "-o", str(tmp_path / fmt), "-m",
+                     "--device", "cpu"] + extra)
+    names = sorted(os.listdir(tmp_path / "png"))
+    assert names == sorted(os.listdir(tmp_path / "bmp")) and len(names) == 3
+    for name in names:
+        assert (tmp_path / "png" / name).read_bytes() == \
+            (tmp_path / "bmp" / name).read_bytes(), name
+
+
+def test_eval_metrics_reads_jpeg_and_bmp(no_ipp, other_formats, monkeypatch,
+                                         capsys, tmp_path):
+    """``eval_metrics`` over JPEG and BMP files gives the JAX tool's lines
+    (its pairs resized by cv2's uint8 ``INTER_CUBIC`` where the sizes
+    differ)."""
+    a_dir, b_dir = tmp_path / "a", tmp_path / "b"
+    a_dir.mkdir()
+    b_dir.mkdir()
+    rng = np.random.default_rng(12)
+    for i, ext in enumerate((".jpg", ".bmp", ".jpeg")):
+        a = rng.integers(0, 256, (40, 90 + 7 * i, 3), np.uint8)
+        b = np.clip(a.astype(int) + rng.integers(-25, 26, a.shape), 0, 255)
+        b = cv2.resize(b.astype(np.uint8), (80, 36)) if i == 2 else b
+        cv2.imwrite(str(a_dir / f"l{i}{ext}"), a)
+        cv2.imwrite(str(b_dir / f"l{i}{ext}"), b.astype(np.uint8))
+    argv = ["-a", str(a_dir), "-b", str(b_dir), "--y_channel"]
+    monkeypatch.syspath_prepend(TOOLS)
+    tool = importlib.import_module("eval_metrics")
+    monkeypatch.setattr(sys, "argv", ["eval_metrics.py"] + argv)
+    tool.main()
+    want = capsys.readouterr().out.splitlines()
+    psnrs, _ = eval_metrics.main(argv)
+    assert capsys.readouterr().out.splitlines() == want
+    assert len(psnrs) == 3
 
 
 def test_page_server_with_frontend_matches_jax(no_ipp, nets, ckpts):

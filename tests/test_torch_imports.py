@@ -50,11 +50,16 @@ def test_package_has_modules():
             "train/loop.py", "cli/train.py", "parallel/__init__.py",
             "parallel/distributed.py", "dryrun.py", "registry.py",
             "data/val_stub.py", "data/degrade/paired.py",
-            "models/legacy_ocr.py", "cli/eval_metrics.py"} <= names
+            "models/legacy_ocr.py", "cli/eval_metrics.py", "utils/jpeg.py",
+            "utils/bmp.py", "utils/imread.py", "utils/gif.py",
+            "cli/parity_report.py", "cli/crop_bg_patches.py",
+            "cli/profile_sr.py"} <= names
 
 
 @pytest.mark.parametrize("name", ["common", "test_sr", "test_w",
-                                  "serve_demo", "train", "eval_metrics"])
+                                  "serve_demo", "train", "eval_metrics",
+                                  "parity_report", "crop_bg_patches",
+                                  "profile_sr"])
 def test_cli_reads_and_writes_without_cv2(name):
     """The CLIs replace the JAX tools' cv2 reads and writes and imageio's
     GIF with the port's PNG codec (and ``train`` the YAML and TensorBoard

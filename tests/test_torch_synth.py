@@ -5,9 +5,10 @@ One seeded renderer (``tests/torch_synth_support.stroke_render``) is
 patched onto both classes, so ``sample`` -- background, render retries,
 colour jitter, the degradation choice, the LQ resize and padding -- and
 ``batch`` (with and without the ``max_chars`` crop, through each side's
-``prepare_train_batch``) run the same draws. Backgrounds: flat, and a
-directory of PNG patches (cv2 reads them in the JAX package, the port's
-PNG codec here). The JAX side's JPEGs are pinned as in
+``prepare_train_batch``) run the same draws. Backgrounds: flat, a
+directory of PNG patches, and one mixing a PNG, a JPEG, a BMP and an
+unreadable file (cv2 reads them in the JAX package, ``utils/imread.py``
+here). The JAX side's JPEGs are pinned as in
 ``test_torch_degrade.py`` (Real-ESRGAN to ``jpeg_np``; BSRGAN's
 ``_add_jpeg`` to the port's). Outputs equal within 1e-4, or within one
 uint8 level at no more than 0.1% of the values; generator states equal.
@@ -124,13 +125,40 @@ def test_render_names_what_is_missing():
         synth.sample(np.random.default_rng(0))
 
 
-def test_other_background_files_are_named_and_skipped(tmp_path):
-    cv2.imwrite(str(tmp_path / "a.png"), np.zeros((8, 8, 3), np.uint8))
-    cv2.imwrite(str(tmp_path / "b.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.warns(UserWarning, match="b.jpg"):
-        synth = tsynth.TextLineSynthesizer(
-            tsynth.SynthConfig(bg_dir=str(tmp_path)))
-    assert [p.rsplit("/", 1)[1] for p in synth.bg_paths] == ["a.png"]
+@pytest.fixture(scope="module")
+def mixed_bg_dir(tmp_path_factory):
+    """A PNG, a JPEG, a BMP and a file cv2 cannot read."""
+    d = tmp_path_factory.mktemp("mixed_bg")
+    rng = np.random.default_rng(8)
+    for name in ("a.png", "b.jpg", "c.bmp"):
+        img = rng.integers(0, 256, (400, 420, 3), np.uint8)
+        cv2.imwrite(str(d / name), cv2.GaussianBlur(img, (0, 0), 2))
+    (d / "notes.txt").write_text("not an image\n")
+    return str(d)
+
+
+def test_other_background_files_are_named_and_skipped(mixed_bg_dir):
+    """Every file of ``bg_dir`` is a background, as in the JAX package
+    (``marconet_tpu/data/synth.py:106-109``), whatever its format; the
+    port used to keep only the PNGs, so on the same seed it drew from a
+    shorter list."""
+    jax_synth, port_synth = _pair(mixed_bg_dir)
+    assert port_synth.bg_paths == jax_synth.bg_paths
+    assert [p.rsplit("/", 1)[1] for p in port_synth.bg_paths] == \
+        ["a.png", "b.jpg", "c.bmp", "notes.txt"]
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_background_matches_jax_on_any_format(pinned, mixed_bg_dir, seed):
+    """The draw picks the same file on both sides (seeds 0-11 pick each of
+    the four at least once); a JPEG or BMP is read as cv2 reads it, the
+    unreadable file gives the flat fallback."""
+    jax_synth, port_synth = _pair(mixed_bg_dir)
+    rj, rt = np.random.default_rng(seed), np.random.default_rng(seed)
+    want = jax_synth.background(rj)
+    got = port_synth.background(rt)
+    assert rj.bit_generator.state == rt.bit_generator.state
+    _assert_close(got, want, "background")
 
 
 def test_failed_degradation_falls_back_to_clean(pinned, monkeypatch):
