@@ -17,7 +17,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    abs difference (expected 0: all do f32 math and round once), CUDA-event
    times of both, and each kernel's bound (the larger of its bytes over
    the card's memory rate and its operations over the f32 peak); K1's
-   achieved GB/s beside the memory rate.
+   achieved GB/s beside the memory rate. The backward kernels report f32
+   and bf16 (``bf16_*`` keys) at the largest training shape.
 4. conv3x3: K3 (the 3x3 implicit-GEMM conv) on its paths, the SFT window
    convs of one serving batch in bf16 (12 launches, counted, all on the
    TMA + wgmma kernel) and in f32 (12 launches, all on the FMA kernel);
@@ -32,10 +33,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    weights, within the tolerances of
    tests/test_convert.py::test_full_pipeline_chain_matches_torch.
 6. serving: bf16 ``restore`` at full width on bench.py's workload (16
-   lines of 8 characters) over several batches; checks shapes, finite
+   lines of 8 characters) over several batches, its parameters cast to
+   bf16 as bench.py casts them; checks shapes, finite
    values, sr in [-1, 1] and that every kernel of the path launched;
    prints crops/s from CUDA events and the per-stage split.
-7. page server: full-width bf16 ``TextPageRestorer`` on a seeded page of
+7. page server: full-width bf16 ``TextPageRestorer`` (bf16 parameters,
+   as phase 6) on a seeded page of
    48 lines (a quarter split into 2-3 segments), default buckets and
    bucket 16; checks results, stitching, equality with ``restore`` on
    each chunk, chunking invariance (in f32), exact K1 / K2 launches per
@@ -72,7 +75,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    with the front-end on lines without text (a split line detected per
    segment); exact K1 / K2 launches per restore (19 / 2, no other kernel),
    every output decoded by ``read_png`` at its shape; prints
-   ``serve_demo``'s warm lines/s.
+   ``serve_demo``'s warm lines/s (bf16 compute over the checkpoint's f32
+   parameters, as the JAX tool computes).
 13. training driver: ``load_config("options/train.yml")`` (full width, 16
    slots, batch 2) and ``train.loop.train`` with its spawned workers
    synthesizing through the real degradations, batching and
@@ -125,6 +129,21 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    2 and 4, a linear fit, and one timed step at the largest batch the fit
    puts under the card's memory (no out-of-memory error is caught). Exact
    K1 / K2 (and in training K1b / K2 bwd) launches in every run.
+16. mixed-precision training: ``MARCONetTrainer(dtype=torch.bfloat16)``
+   (bf16 compute over f32 parameters and Adam states, the JAX package's
+   ``tools/bench_train.py`` policy). First one bf16 and one f32 step from
+   one seeded state and batch at the CPU suite's reduced size (width
+   0.0625, 4 slots, B=2), each loss term and each net's gradient against
+   the f32 step within ``BF16_LOSS_TOL`` / ``BF16_GRAD_RTOL``. Then at
+   full width on ``tools/bench_train.py``'s batch (B=2 x 16 slots, 8 valid
+   characters a line), an f32 and then a bf16 trainer: one warm-up step
+   and 5 timed ones each (CUDA events; samples/s, the G / D / SRD split,
+   peak memory), exact launches per step, every parameter, gradient,
+   buffer and Adam state f32 after the steps, finite losses; one more bf16
+   step under ``torch.profiler`` shows every K1 / K1b / K2 / K2 backward
+   kernel of the step as its bf16 instantiation (19 / 19 / 2 / 2), with
+   the step's idle share and self device time by operator. Prints the
+   bf16 rate beside the f32 one of this batch and of phase 10.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -370,6 +389,14 @@ def _check_exact(name: str, label: str, err: float) -> None:
                              f"{err} ({label})")
 
 
+def _bf16_row(ms, plain_ms, bound_ms, bound_by) -> dict:
+    """A backward kernel's bf16 numbers beside its f32 ones (the bf16
+    training step of phase 16 runs them), with the kernel's share of its
+    bound."""
+    return dict(bf16_ms=ms, bf16_plain_ms=plain_ms, bf16_bound_ms=bound_ms,
+                bf16_bound_by=bound_by, bf16_share=bound_ms / ms)
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version at the main paths' shapes.
 
@@ -378,7 +405,8 @@ def phase_kernels() -> dict:
     that runs them), f32 and bf16 each. The report keeps, per kernel, the
     largest error and the times and bound of its reported case: bf16 at
     the largest serving shape for K1 / K2 (as in earlier runs), f32 at the
-    largest training shape for the backward kernels.
+    largest training shape for the backward kernels, and beside it that
+    shape's bf16 numbers (``bf16_*``, the bf16 training step's).
     """
     dev = torch.device("cuda", 0)
     gen = np.random.default_rng(0)
@@ -432,6 +460,8 @@ def phase_kernels() -> dict:
                 if reported:
                     rep.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by)
+                elif name == "fused_leaky_relu_bwd" and x.dim() == 4:
+                    rep.update(_bf16_row(ms, plain_ms, bound_ms, bound_by))
             del x, g
         for label, b, (height, width, hw) in (
                 ("sft_32 serve", SERVE_BATCH, (32, 512, 16)),
@@ -476,6 +506,8 @@ def phase_kernels() -> dict:
                 if reported:
                     rep.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by)
+                elif name == "sft_writeback_bwd" and label == "sft_64 train":
+                    rep.update(_bf16_row(ms, plain_ms, bound_ms, bound_by))
             del canvas, res, g
     torch.cuda.empty_cache()
     for rep in report.values():
@@ -571,7 +603,9 @@ def _check_counts(phase: str, launches: dict, expected: dict,
 def phase_serve(smi: str) -> dict:
     """bf16 restore on bench.py's workload, several batches."""
     b, n = SERVE_BATCH, SERVE_SLOTS
-    net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0)
+    # bf16 parameters, as bench.py casts its params
+    net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0).to(
+        torch.bfloat16)
     gen = np.random.default_rng(2)
     centers = [0.06 + 0.11 * c for c in range(n)]   # bench.py's layout
     requests = [[t.cuda() for t in _lines(gen, b, n, n, centers)]
@@ -959,7 +993,7 @@ def _batch_sensitivity() -> None:
                                        [0.06 + 0.11 * c for c in range(8)])]
     doubled = [torch.cat([t, t]) for t in inputs]
     for dtype in (torch.bfloat16, torch.float32):
-        net = MARCONet(dtype=dtype, device="cuda", seed=0)
+        net = MARCONet(dtype=dtype, device="cuda", seed=0).to(dtype)
         alone, twice = net.restore(*inputs), net.restore(*doubled)
         say(f"[page] restore of 16 lines alone vs in a batch of 32, "
             f"{str(dtype).removeprefix('torch.')}: w max_abs_diff "
@@ -1006,7 +1040,8 @@ def phase_page(smi: str) -> dict:
     host prep and device time per chunk and the device's idle share over
     the loop (``torch.profiler``).
     """
-    net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0)
+    net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0).to(
+        torch.bfloat16)                     # bench.py's bf16 parameters
     page, line_boxes, texts, char_boxes = _page(np.random.default_rng(6))
     page_server = TextPageRestorer(net)
     lines16 = TextPageRestorer(net, buckets=(16,))
@@ -1502,52 +1537,60 @@ def phase_train(smi: str) -> tuple:
     gen = np.random.default_rng(4)
     batches = [TrainBatch.from_numpy(
         _train_arrays(gen, TRAIN_BATCH, TRAIN_SLOTS), dev) for _ in range(2)]
-    params = {f"{n}.{k}": p for n in NETS
-              for k, p in trainer.net(n).named_parameters()}
-    before = {k: p.detach().clone() for k, p in params.items()}
-    torch.cuda.reset_peak_memory_stats(dev)
-
     _reset_counts()
-    trainer.train_step(batches[0])                 # warm-up
-    torch.cuda.synchronize()
-    _check_moved(params, before)
-    del before
-    marks, metrics = [], []
-    for i in range(TRAIN_STEPS):
-        metrics.append(trainer.train_step(batches[i % 2], marks=marks))
-    torch.cuda.synchronize()
+    ms, split, peak, last = _timed_steps(trainer, batches, "train")
     launches = _counts()
     steps = TRAIN_STEPS + 1
     _check_counts("train", launches,
                   {k: v * steps for k, v in TRAIN_LAUNCHES.items()},
                   f"{steps} steps")
-
-    if trainer.step != steps:
-        raise AssertionError(f"step is {trainer.step}, expected {steps}")
-    for m in metrics:
-        for k, v in m.items():
-            if not bool(torch.isfinite(v)):
-                raise AssertionError(f"non-finite {k}")
-    split = {"G": 0.0, "D": 0.0, "SRD": 0.0}
-    for i in range(TRAIN_STEPS):
-        m = marks[4 * i: 4 * i + 4]
-        for j, phase in enumerate(split):
-            split[phase] += m[j].elapsed_time(m[j + 1])
-    total = marks[0].elapsed_time(marks[-1])
-    ms = total / TRAIN_STEPS
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     say(f"[train] f32 B={TRAIN_BATCH} slots={TRAIN_SLOTS} full width, "
         f"TF32 off: {ms:.2f} ms/step = {TRAIN_BATCH * 1e3 / ms:.3f} "
         f"samples/s over {TRAIN_STEPS} steps on {smi}")
     say("[train] split (ms/step): " + ", ".join(
-        f"{k} {v / TRAIN_STEPS:.2f}" for k, v in split.items()))
+        f"{k} {v:.2f}" for k, v in split.items()))
     say(f"[train] peak device memory {peak:.2f} GiB; last losses: " +
-        ", ".join(f"{k} {float(v):.4g}" for k, v in metrics[-1].items()))
+        ", ".join(f"{k} {float(v):.4g}" for k, v in last.items()))
     _profile_step(trainer, batches[0])
     return launches, TRAIN_BATCH * 1e3 / ms
 
 
-def _check_moved(params: dict, before: dict) -> None:
+def _timed_steps(trainer, batches, phase: str) -> tuple:
+    """A fresh trainer's warm-up step (after which every parameter with a
+    gradient has moved), then ``TRAIN_STEPS`` timed ones with finite
+    losses: (ms a step, G / D / SRD ms a step, peak GiB, the last
+    metrics), from CUDA events."""
+    dev = trainer.device
+    params = {f"{n}.{k}": p for n in NETS
+              for k, p in trainer.net(n).named_parameters()}
+    before = {k: p.detach().clone() for k, p in params.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.train_step(batches[0])                 # warm-up
+    torch.cuda.synchronize()
+    _check_moved(params, before, phase)
+    del before
+    marks, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        metrics.append(trainer.train_step(batches[i % 2], marks=marks))
+    torch.cuda.synchronize()
+    if trainer.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"step is {trainer.step}, expected "
+                             f"{TRAIN_STEPS + 1}")
+    for m in metrics:
+        for k, v in m.items():
+            if not bool(torch.isfinite(v)):
+                raise AssertionError(f"{phase}: non-finite {k}")
+    split = {"G": 0.0, "D": 0.0, "SRD": 0.0}
+    for i in range(TRAIN_STEPS):
+        m = marks[4 * i: 4 * i + 4]
+        for j, name in enumerate(split):
+            split[name] += m[j].elapsed_time(m[j + 1]) / TRAIN_STEPS
+    ms = marks[0].elapsed_time(marks[-1]) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return ms, split, peak, metrics[-1]
+
+
+def _check_moved(params: dict, before: dict, phase: str) -> None:
     """After one step (no freeze groups) every parameter tensor with a
     gradient entry above 100 x Adam's eps moved: Adam's first update is
     about lr * sign(g) there. Tensors without one are named."""
@@ -1559,7 +1602,7 @@ def _check_moved(params: dict, before: dict) -> None:
             quiet.append(key)
         elif torch.equal(p.detach(), before[key]):
             raise AssertionError(f"{key} did not move")
-    say(f"[train] after the warm-up step {len(params) - len(quiet)} of "
+    say(f"[{phase}] after the warm-up step {len(params) - len(quiet)} of "
         f"{len(params)} parameter tensors moved; without a gradient above "
         f"1e-6: {quiet}")
 
@@ -1567,9 +1610,10 @@ def _check_moved(params: dict, before: dict) -> None:
 _CUPTI_MARKER = "Command Buffer Full"
 
 
-def _profile_step(trainer, batch) -> None:
+def _profile_step(trainer, batch, phase: str = "train"):
     """Device busy time and the operators that take it, over one more
-    training step (``torch.profiler``; counts outside the timed steps)."""
+    training step (``torch.profiler``; counts outside the timed steps).
+    Returns the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1577,19 +1621,20 @@ def _profile_step(trainer, batch) -> None:
         trainer.train_step(batch)
         torch.cuda.synchronize()
     if _busy(prof) is None:
-        say("[train] profile: no device time recorded (not measured)")
-        return
+        say(f"[{phase}] profile: no device time recorded (not measured)")
+        return prof
     busy, window = _busy(prof)
     ops = sorted(((e.self_device_time_total, e.key)
                   for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.key != _CUPTI_MARKER
                   and e.self_device_time_total > 0), reverse=True)
-    say(f"[train] profile of one step: device busy {busy:.2f} ms of a "
+    say(f"[{phase}] profile of one step: device busy {busy:.2f} ms of a "
         f"{window:.2f} ms window (idle share {100 * (1 - busy / window):.2f}"
         f"%); self device time by op: " + ", ".join(
             f"{k} {t / 1e3:.2f} ms ({100 * t / 1e3 / busy:.1f}%)"
             for t, k in ops[:12]))
+    return prof
 
 
 # ---------------------------------------------------------------------------
@@ -1864,8 +1909,9 @@ def phase_cli(smi: str, ckpt_dir: str, work: str) -> dict:
     _check_pngs([os.path.join(out, f"{i:03d}_{os.path.splitext(m)[0]}.png")
                  for i, m in enumerate(res["names"])],
                 [(128, shows[m], 3) for m in res["names"]], "serve_demo")
-    say(f"[cli] serve_demo (front-end, bf16) {n} lines in {res['chunks']} "
-        f"chunk(s) a pass: first pass {res['first_s']:.2f} s, warm "
+    say(f"[cli] serve_demo (front-end, bf16 compute over f32 parameters) "
+        f"{n} lines in {res['chunks']} chunk(s) a pass: first pass "
+        f"{res['first_s']:.2f} s, warm "
         f"{res['warm_s'] * 1e3:.1f} ms = {res['lines_per_s']:.2f} lines/s "
         f"on {smi}")
 
@@ -2881,6 +2927,202 @@ def phase_io_tools(smi: str, ckpt_dir: str, work: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: mixed-precision training (bf16 compute over f32 parameters)
+# ---------------------------------------------------------------------------
+
+# the bf16 step against the f32 step from one state and batch at the CPU
+# suite's reduced size (width 0.0625, 4 slots, B=2): each loss term within
+# BF16_LOSS_TOL = (rtol, atol) of its f32 value, each net's gradient within
+# BF16_GRAD_RTOL relative L2 of its f32 one. Bounds: about twice the
+# largest bf16-vs-f32 distances seen at that size, on the CPU over two
+# seeds and on the card (NVIDIA H100 80GB HBM3, 700 W; this phase's
+# batch): loss terms within 4.7 % of their value + 1e-4 (the hinge terms
+# near 0; the others within 0.83 %); gradients' relative L2: encoder
+# 0.18-0.34, SR net 0.04-0.38, prior 0.055-0.082, discriminators
+# 0.005-0.018. Random-weight nets in bf16 cross ReLU and leaky-ReLU
+# boundaries the f32 nets do not, which moves the encoder's and SR net's
+# gradients most
+BF16_PARITY = dict(width=0.0625, max_chars=4)
+BF16_LOSS_TOL = (0.1, 1e-4)
+BF16_GRAD_RTOL = {"encoder": 0.7, "prior": 0.2, "srnet": 0.75,
+                  "net_d": 0.05, "net_srd": 0.05}
+# the CUDA kernels of the training path, by the names of their templates
+TRAIN_KERNEL_NAMES = {"fused_leaky_relu": "fused_lrelu_fwd_kernel",
+                      "fused_leaky_relu_bwd": "fused_lrelu_bwd_kernel",
+                      "sft_writeback": "sft_writeback_kernel",
+                      "sft_writeback_bwd": "sft_writeback_bwd_kernel"}
+
+
+def _bench_train_arrays(gen: np.random.Generator, batch: int):
+    """``tools/bench_train.py``'s batch (lines 60-72): seeded GT lines and
+    ink masks, 16 slots with 8 valid characters a line at lefts
+    0.05 + 0.115 i, 0.05 wide, through the port's ``prepare_train_batch``."""
+    gt = gen.uniform(-1, 1, (batch, 128, 2048, 3)).astype(np.float32)
+    ink = (gen.uniform(0, 1, (batch, 128, 2048, 3)) > 0.7).astype(np.float32)
+    lq = gen.uniform(-1, 1, (batch, 32, 512, 3)).astype(np.float32)
+    labels = np.full((batch, 16), BLANK_INDEX, np.int64)
+    box = np.zeros((batch, 32), np.float32)
+    lefts = 0.05 + 0.115 * np.arange(8)
+    for i in range(batch):
+        labels[i, :8] = gen.integers(0, 6735, 8)
+        box[i, 0:16:2] = lefts
+        box[i, 1:16:2] = lefts + 0.05
+    return prepare_train_batch(gt, ink, labels, box, lq)
+
+
+def _check_f32_state(trainer, what: str) -> None:
+    """Parameters, their gradients, buffers and Adam states are f32."""
+    for name in NETS:
+        net = trainer.net(name)
+        for key, p in net.named_parameters():
+            if p.dtype != torch.float32 or (p.grad is not None and
+                                            p.grad.dtype != torch.float32):
+                raise AssertionError(f"{what}: {name}.{key} is {p.dtype}, "
+                                     f"grad {getattr(p.grad, 'dtype', None)}")
+        for key, b in net.named_buffers():
+            if b.dtype != torch.float32:
+                raise AssertionError(f"{what}: {name}.{key} is {b.dtype}")
+        for st in trainer.optimizers[name].state.values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if st[key].dtype != torch.float32:
+                    raise AssertionError(f"{what}: {name} Adam {key} is "
+                                         f"{st[key].dtype}")
+
+
+def _bf16_parity() -> None:
+    """One bf16 and one f32 step from one seeded state and batch at the
+    reduced size, on the card."""
+    dev = torch.device("cuda", 0)
+    arrays = _train_arrays(np.random.default_rng(17), TRAIN_BATCH,
+                           BF16_PARITY["max_chars"])
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        trainer = MARCONetTrainer(TrainConfig(), device=dev, seed=0,
+                                  allow_random_lpips=True, dtype=dtype,
+                                  **BF16_PARITY)
+        metrics = trainer.train_step(TrainBatch.from_numpy(arrays, dev))
+        grads = {n: torch.cat([p.grad.flatten() for p in
+                               trainer.net(n).parameters()])
+                 for n in NETS}
+        out[dtype] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (l32, g32), (lbf, gbf) = out[torch.float32], out[torch.bfloat16]
+    rtol, atol = BF16_LOSS_TOL
+    worst = max((abs(lbf[k] - l32[k]) - rtol * abs(l32[k]), k) for k in l32)
+    rel = {n: _rel_l2(gbf[n], g32[n]) for n in NETS}
+    say(f"[train16] bf16 vs f32 step at width {BF16_PARITY['width']}, "
+        f"{BF16_PARITY['max_chars']} slots, B={TRAIN_BATCH}: loss terms "
+        + ", ".join(f"{k} {abs(lbf[k] - l32[k]):.3g}/{abs(l32[k]):.4g}"
+                    for k in l32)
+        + f" (limit {rtol:g} x |f32| + {atol:g}); gradients' relative L2 "
+        + ", ".join(f"{n} {rel[n]:.4f} (limit {BF16_GRAD_RTOL[n]:g})"
+                    for n in NETS))
+    if worst[0] > atol:
+        raise AssertionError(f"bf16 loss term {worst[1]} off the f32 one")
+    for n in NETS:
+        if not rel[n] <= BF16_GRAD_RTOL[n]:
+            raise AssertionError(f"bf16 gradient of {n}: relative L2 "
+                                 f"{rel[n]} > {BF16_GRAD_RTOL[n]}")
+
+
+def _template(name: str) -> str:
+    """``kernel<args>`` of a demangled kernel name (the name itself when it
+    has no template arguments)."""
+    start, end = name.find("<"), name.find(">(")
+    if start < 0 or end < 0:
+        return name
+    return name[:start].rsplit("::", 1)[-1] + name[start:end + 1]
+
+
+def _step_kernels(trainer, batch) -> dict:
+    """The training path's CUDA kernels in one more step, by name, from
+    ``torch.profiler`` (the step's busy time and top operators printed):
+    {wrapper: [kernel names]}."""
+    prof = _profile_step(trainer, batch, "train16")
+    seen = {k: [] for k in TRAIN_KERNEL_NAMES}
+    ms = dict.fromkeys(TRAIN_KERNEL_NAMES, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for wrapper, kernel in TRAIN_KERNEL_NAMES.items():
+            if kernel in e.name:
+                seen[wrapper].append(e.name)
+                ms[wrapper] += e.time_range.elapsed_us() / 1e3
+    say("[train16] the port's kernels in that step (device ms): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return seen
+
+
+def phase_train_bf16(smi: str, f32_samples_per_s: float) -> dict:
+    """Phase 16 (see the module docstring). Returns its kernel launches."""
+    total = dict.fromkeys(_WRAPPERS, 0)
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    _reset_counts()
+    _bf16_parity()
+    got = _counts()
+    _check_counts("train16", got, {k: 2 * v for k, v in
+                                   TRAIN_LAUNCHES.items()},
+                  "the two reduced-size steps")
+    add(got)
+    dev = torch.device("cuda", 0)
+    gen = np.random.default_rng(18)
+    batches = [TrainBatch.from_numpy(_bench_train_arrays(gen, TRAIN_BATCH),
+                                     dev) for _ in range(2)]
+    steps = TRAIN_STEPS + 1
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        torch.cuda.empty_cache()
+        trainer = MARCONetTrainer(TrainConfig(), device=dev, seed=0,
+                                  allow_random_lpips=True, dtype=dtype)
+        _reset_counts()
+        ms, split, peak, last = _timed_steps(trainer, batches, "train16")
+        launches = _counts()
+        _check_counts("train16", launches,
+                      {k: v * steps for k, v in TRAIN_LAUNCHES.items()},
+                      f"{steps} {dn} steps")
+        _check_f32_state(trainer, f"{dn} trainer")
+        add(launches)
+        results[dtype] = (ms, split, peak, last)
+        if dtype == torch.bfloat16:
+            _reset_counts()
+            seen = _step_kernels(trainer, batches[0])
+            add(_counts())
+            for wrapper, names in seen.items():
+                want = TRAIN_LAUNCHES[wrapper]
+                if len(names) != want or not all("bfloat16" in n
+                                                 for n in names):
+                    raise AssertionError(
+                        f"bf16 step: {len(names)} "
+                        f"{TRAIN_KERNEL_NAMES[wrapper]} kernels, expected "
+                        f"{want} bf16 ones: {sorted(set(names))}")
+            say("[train16] one profiled bf16 step: " + ", ".join(
+                f"{len(v)} x " + ", ".join(map(_template, sorted(set(v))))
+                for v in seen.values()))
+        say(f"[train16] {dn} compute (f32 parameters and Adam states) "
+            f"B={TRAIN_BATCH} x {TRAIN_SLOTS} slots, 8 valid characters a "
+            f"line (tools/bench_train.py's batch), full width, TF32 off: "
+            f"{ms:.2f} ms/step = {TRAIN_BATCH * 1e3 / ms:.3f} samples/s "
+            f"over {TRAIN_STEPS} steps; split (ms/step) " + ", ".join(
+                f"{k} {v:.2f}" for k, v in split.items())
+            + f"; peak device memory {peak:.2f} GiB; last losses: "
+            + ", ".join(f"{k} {float(v):.4g}" for k, v in last.items())
+            + f" on {smi}")
+        del trainer
+    (ms32, *_), (msbf, _, peakbf, _) = (results[torch.float32],
+                                       results[torch.bfloat16])
+    say(f"[train16] bf16 / f32 samples/s on this batch: "
+        f"{TRAIN_BATCH * 1e3 / msbf:.3f} / {TRAIN_BATCH * 1e3 / ms32:.3f} "
+        f"= {ms32 / msbf:.3f}x; phase 10's f32 rate (3 valid characters a "
+        f"line) {f32_samples_per_s:.3f}; bf16 peak {peakbf:.2f} GiB")
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2907,13 +3149,16 @@ def main() -> None:
         t15 = time.perf_counter()
         io = phase_io_tools(smi, ckpt_dir, work)
         say(f"[smoke] phase 15 in {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    train16 = phase_train_bf16(smi, bare_rate)
+    say(f"[smoke] phase 16 in {time.perf_counter() - t16:.1f} s")
     kernels = [dict(name=name, **KERNELS[name],
                     launches=k3[name] + serve[name] + page[name]
                     + train_launches[name] + cli[name] + loop[name]
-                    + dp[name] + io[name],
+                    + dp[name] + io[name] + train16[name],
                     **report[name])
                for name in KERNELS]
-    say(f"[smoke] phases 1-15 in {time.perf_counter() - t0:.1f} s")
+    say(f"[smoke] phases 1-16 in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

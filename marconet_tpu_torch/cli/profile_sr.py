@@ -1,7 +1,8 @@
 """Capture a ``torch.profiler`` trace of the restore pipeline (counterpart
 of ``tools/profile_sr.py``).
 
-A seeded random bf16 ``MARCONet`` restores ``--batch`` lines of
+A seeded random bf16 ``MARCONet``, its parameters cast to bf16 as
+``bench.py`` casts them, restores ``--batch`` lines of
 ``--slots`` characters (the JAX tool's inputs: numpy seed 0, labels below
 6735, ``bench.py``'s character layout): one warm-up restore, then
 ``--iters`` restores under ``torch.profiler`` (host and, on the card,
@@ -76,7 +77,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = parser().parse_args(argv)
-    net = MARCONet(dtype=torch.bfloat16, device=args.device, seed=0)
+    net = MARCONet(dtype=torch.bfloat16, device=args.device, seed=0).to(
+        torch.bfloat16)
     return profile_restore(net, args.out_dir, args.batch, args.slots,
                            args.iters)
 

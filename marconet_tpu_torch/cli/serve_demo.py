@@ -92,6 +92,8 @@ def serve_dir(net: MARCONet, frontend, test_path: str, save_path: str,
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     os.makedirs(args.save_path, exist_ok=True)
+    # f32 parameters under the compute dtype, as tools/serve_demo.py:48-49
+    # builds its net over ``build_params``' f32 weights
     net = MARCONet(dtype=DTYPES[args.dtype], device=args.device)
     load_reference_or_random(net, args.ckpt_dir)
     frontend = None if args.manual else load_frontend(args.ckpt_dir,

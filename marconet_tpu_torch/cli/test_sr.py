@@ -159,6 +159,8 @@ def main(argv=None) -> List[Tuple[str, str, int]]:
         save_path = args.test_path.rstrip("/") + f"_{stamp}_MARCONetTorch"
     os.makedirs(save_path, exist_ok=True)
 
+    # f32 parameters under the compute dtype, as tools/test_sr.py:77-79
+    # builds its net over ``build_params``' f32 weights
     net = MARCONet(dtype=DTYPES[args.dtype], device=args.device)
     load_reference_or_random(net, args.ckpt_dir)
     frontend = None if args.manual else load_frontend(args.ckpt_dir,

@@ -8,7 +8,9 @@ names follow the reference checkpoint's keys (``resnet.*``,
 
 I/O: lq (B, 3, 32, 512) NCHW -> logits (B, 64, 6736), locs (B, 32),
 w (B, 512). Attention is the plain matmul-softmax-matmul of the JAX
-package (softmax in f32).
+package: the logits summed in f32 from the compute-dtype q and k, softmax
+in f32, the weights rounded to v's dtype. LayerNorms compute in f32 and
+round their output to the compute dtype, as flax's ``LayerNorm(dtype=)``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from marconet_tpu_torch.ops.layers import Conv, Linear
+from marconet_tpu_torch.ops.layers import Conv, LayerNorm, Linear
 
 MAX_CHARS = 16
 PATCH = 8
@@ -135,7 +137,7 @@ class Attention(nn.Module):
         kw = dict(device=device, generator=generator)
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.norm = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.norm = LayerNorm(dim, eps=1e-5, device=device)
         self.to_qkv = Linear(dim, inner * 3, bias=False, **kw)
         self.to_out = Linear(inner, dim, bias=False, **kw)
 
@@ -147,7 +149,9 @@ class Attention(nn.Module):
             return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
         q, k, v = heads(q), heads(k), heads(v)
-        logits = torch.matmul(q, k.transpose(-1, -2)).float()
+        # products of the compute-dtype values are exact in f32: JAX's
+        # einsum(..., preferred_element_type=f32)
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         attn = torch.softmax(logits * self.dim_head ** -0.5, dim=-1)
         out = torch.matmul(attn.to(v.dtype), v)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
@@ -160,7 +164,7 @@ class FeedForward(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         kw = dict(device=device, generator=generator)
-        self.net = nn.Sequential(nn.LayerNorm(dim, eps=1e-5, device=device),
+        self.net = nn.Sequential(LayerNorm(dim, eps=1e-5, device=device),
                                  Linear(dim, hidden, **kw), nn.GELU(),
                                  Linear(hidden, dim, **kw))
 
@@ -191,7 +195,7 @@ class SeqProject(nn.Sequential):
 
     def __init__(self, seq_len: int, out_len: int, *, device=None,
                  generator: torch.Generator):
-        super().__init__(nn.LayerNorm(seq_len, eps=1e-5, device=device),
+        super().__init__(LayerNorm(seq_len, eps=1e-5, device=device),
                          Linear(seq_len, out_len, device=device,
                                 generator=generator))
 
@@ -234,7 +238,7 @@ class TextViTHead(nn.Module):
         self.transformer = _Trunk(dim, mlp_dim, dim_head, max_length, **kw)
 
         def ln():
-            return nn.LayerNorm(dim, eps=1e-5, device=device)
+            return LayerNorm(dim, eps=1e-5, device=device)
 
         self.linear_cls = nn.Sequential(ln(), Linear(dim, num_classes, **kw))
         self.linear_locs = nn.Sequential(ln(), Linear(dim, dim // 2, **kw),

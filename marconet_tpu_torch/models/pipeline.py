@@ -24,6 +24,7 @@ from marconet_tpu_torch.models.prior import (
     StructurePriorGenerator,
 )
 from marconet_tpu_torch.models.srnet import StructurePriorSRNet
+from marconet_tpu_torch.ops.layers import Precision, set_compute_dtype
 
 
 def resolve_device(device) -> torch.device:
@@ -48,7 +49,7 @@ class RestoreOutput(NamedTuple):
     w: torch.Tensor           # (B, w_dim) font-style vectors
 
 
-class MARCONet(nn.Module):
+class MARCONet(Precision, nn.Module):
     """The three core networks and the restore pipeline over them.
 
     Typical use::
@@ -56,11 +57,16 @@ class MARCONet(nn.Module):
         net = MARCONet(dtype=torch.bfloat16, device="cuda", seed=0)
         out = net.restore(lq, labels, locs, char_mask)
 
+    ``dtype`` is the compute precision, as in the JAX package: the
+    parameters stay float32 (a bf16 net over an f32 checkpoint computes
+    as the JAX tools do) unless the caller casts them, e.g.
+    ``net.to(torch.bfloat16)`` for ``bench.py``'s bf16 parameters.
+
     Args:
       width: channel multiplier (1.0 = the exact reference architecture;
         reduced widths share the code path).
       num_classes: codebook / classifier size (6736 with blank).
-      dtype: parameter and compute dtype, float32 or bfloat16.
+      dtype: compute dtype, float32 or bfloat16.
       device: where parameters are created and the pipeline runs; CUDA
         unless named (see :func:`resolve_device`).
       seed: seed of the ``torch.Generator`` that draws the random init.
@@ -70,8 +76,6 @@ class MARCONet(nn.Module):
                  dtype: torch.dtype = torch.float32, device="cuda",
                  seed: int = 0):
         super().__init__()
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"unsupported dtype {dtype}")
         device = resolve_device(device)
         g = torch.Generator(device=device).manual_seed(seed)
         kw = dict(device=device, generator=g)
@@ -80,13 +84,13 @@ class MARCONet(nn.Module):
             num_classes, style_dim=self.encoder.w_dim, width=width, **kw)
         ch = self.prior.channels
         self.srnet = StructurePriorSRNet(ch[64], ch[32], **kw)
-        self.to(dtype)
+        set_compute_dtype(self, dtype)
         self.eval()
-        self.dtype, self.device = dtype, device
+        self.device = device
 
     def _nchw_input(self, lq: torch.Tensor) -> torch.Tensor:
         """lq (B, 32, 512, 3) NHWC -> the nets' input: NCHW channels_last
-        in the pipeline's dtype, on its device."""
+        in the compute dtype, on its device."""
         if lq.dim() != 4 or tuple(lq.shape[1:]) != (32, 512, 3):
             raise ValueError(f"lq must be (B, 32, 512, 3), got "
                              f"{tuple(lq.shape)}")
@@ -152,7 +156,9 @@ class MARCONet(nn.Module):
         """Glyph priors of ``labels`` under blends of two styles (reference
         ``test_w.py:102-115``).
 
-        Blend ``s`` is ``w1 * s + w2 * (1 - s)`` (in f32). The S blends of
+        Blend ``s`` is ``w1 * s + w2 * (1 - s)`` in f32, which the style
+        MLP's PixelNorm takes in f32, as the JAX package's f32 blend
+        weights promote it. The S blends of
         the N labels run as one prior batch of S * N slots (blend-major),
         where the JAX package vmaps over the blends.
 
@@ -166,7 +172,7 @@ class MARCONet(nn.Module):
         dev = self.device
         w1, w2 = (t.to(device=dev, dtype=torch.float32) for t in (w1, w2))
         s = weights.to(device=dev, dtype=torch.float32)[:, None]
-        styles = (w1[None] * s + w2[None] * (1.0 - s)).to(self.dtype)
+        styles = w1[None] * s + w2[None] * (1.0 - s)
         n = labels.shape[0]
         labels = labels.to(device=dev, dtype=torch.long)
         img = self.prior(styles.repeat_interleave(n, dim=0),

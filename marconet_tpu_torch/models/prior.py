@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from marconet_tpu_torch.models.encoder import scaled_width
-from marconet_tpu_torch.ops.layers import EqualLinear, PixelNorm
+from marconet_tpu_torch.ops.layers import EqualLinear, PixelNorm, Precision
 from marconet_tpu_torch.ops.modconv import StyledConv, ToRGB
 
 # channel plan per resolution (channel_multiplier=1)
@@ -62,8 +62,9 @@ class CharCodebook(nn.Module):
         return x.contiguous(memory_format=torch.channels_last)
 
 
-class TextGenerator(nn.Module):
-    """Style MLP + codebook + modulated conv pyramid (4 -> 128)."""
+class TextGenerator(Precision, nn.Module):
+    """Style MLP + codebook + modulated conv pyramid (4 -> 128); the
+    codebook's f32 embeddings enter the pyramid in ``dtype``."""
 
     def __init__(self, num_classes: int, style_dim: int, channels: dict, *,
                  device=None, generator: torch.Generator):
@@ -91,7 +92,7 @@ class TextGenerator(nn.Module):
                 ) -> PriorOutput:
         """styles (B, style_dim); labels (B,) int."""
         w = self.style_mlp(styles)
-        x = self.input_text(labels).to(w.dtype)
+        x = self.input_text(labels).to(self.dtype)
         x = self.conv1(x, w)
         skip = self.to_rgb1(x, w)
         feats = {}

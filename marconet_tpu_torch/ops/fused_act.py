@@ -10,8 +10,11 @@ Forward: ``y = sqrt(2) * leaky_relu(x + b, 0.2)`` with ``b`` broadcast
 over the channel axis, math in f32, stored in ``x``'s dtype.
 Backward: ``dx = g * (sqrt(2) if x + b >= 0 else 0.2 * sqrt(2))``, f32
 math and one rounding to ``x``'s dtype, in the JAX kernel's order;
-``db`` is the f32 sum of ``dx`` over every non-channel axis, cast to the
-bias dtype (as JAX does outside its kernel).
+``db`` is the f32 sum of ``dx`` over every non-channel axis, rounded to
+``x``'s dtype and returned in the bias's dtype: the bias may be an f32
+parameter with a bf16 ``x``, and the JAX package rounds it to ``x``'s
+dtype before its kernel (``bias.astype(dtype)``), so its f32 gradient is
+the bf16 ``db`` cast back.
 
 :func:`fused_leaky_relu` is a ``torch.autograd.Function``. On CUDA
 tensors its forward launches K1 and its backward K1b (``csrc/
@@ -152,17 +155,19 @@ class _FusedLeakyReLU(torch.autograd.Function):
         db = None
         if ctx.needs_input_grad[1]:
             axes = (0,) if x.dim() == 2 else (0, 2, 3)
-            db = dx.float().sum(dim=axes).to(bias.dtype)
+            db = dx.float().sum(dim=axes).to(x.dtype).to(bias.dtype)
         return dx, db
 
 
 def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``sqrt(2) * leaky_relu(x + bias, 0.2)``, bias (C,) on the channels.
 
-    ``x`` is (rows, C) contiguous or NCHW channels_last, f32 or bf16.
-    Differentiable in ``x`` and ``bias``: the backward is
-    :func:`fused_leaky_relu_bwd`. CPU tensors take the plain twins; CUDA
-    tensors launch K1 (counted in ``fused_leaky_relu.launches``).
+    ``x`` is (rows, C) contiguous or NCHW channels_last, f32 or bf16;
+    ``bias`` any float dtype (an f32 parameter with a bf16 ``x`` is
+    rounded to bf16 first, as the JAX package does). Differentiable in
+    ``x`` and ``bias``: the backward is :func:`fused_leaky_relu_bwd`. CPU
+    tensors take the plain twins; CUDA tensors launch K1 (counted in
+    ``fused_leaky_relu.launches``).
     """
     return _FusedLeakyReLU.apply(x, bias)
 

@@ -15,22 +15,68 @@ distributions and draws from an explicit ``torch.Generator``.
 - ``SNConv``: spectral-norm conv; eval mode uses the stored u, v, training
   mode advances them by one power iteration per forward.
 - ``Conv``, ``Linear``: plain layers with the JAX package's lecun-normal init.
+- ``LayerNorm``: flax ``LayerNorm`` numerics (statistics and affine in
+  f32, output in the compute dtype).
 - ``ResTextBlockV2``: GroupNorm/swish residual block, plain or masked.
 - ``masked_mean_std`` / ``adaptive_instance_norm``: AdaIN statistics
   (unbiased variance, eps added before the sqrt).
 
 Masks are NCHW-broadcastable ``(B, 1, 1|H, W)`` tensors.
+
+Precision follows the JAX package's rule: every layer with parameters has
+a compute ``dtype`` (float32 unless :func:`set_compute_dtype` says
+otherwise) and the parameters keep their own, float32 unless the caller
+casts them. A layer casts its input and its effective weights to
+``dtype`` where it uses them, in the JAX order: a scale is applied in the
+parameters' dtype and the product rounded once
+(``(kernel * scale).astype(dtype)``), a spectral sigma is taken in f32.
+Autograd carries a bf16 weight gradient back through the cast into the
+f32 ``.grad``, as JAX's ``astype`` transpose does. In f32 every cast is
+the identity.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from marconet_tpu_torch.ops.fused_act import fused_leaky_relu
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class Precision:
+    """Mixin of the modules that compute in a ``dtype`` of their own (the
+    JAX package's per-module ``dtype``), set by :func:`set_compute_dtype`;
+    float32 by default."""
+
+    dtype: torch.dtype = torch.float32
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every :class:`Precision` module under ``module`` (itself
+    included) compute in ``dtype``; parameters and buffers keep their
+    dtype. Returns ``module``."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unsupported compute dtype {dtype}")
+    for m in module.modules():
+        if isinstance(m, Precision):
+            m.dtype = dtype
+    return module
+
+
+def equalized_gain(fan_in: int, lr_mul: float = 1.0) -> float:
+    """``lr_mul / sqrt(fan_in)`` as the JAX package computes it, in f32:
+    ``(1 / sqrt(fan_in)) * lr_mul`` with each step rounded to f32. So
+    ``(W * gain).to(dtype)`` is the JAX package's effective weight
+    ``(kernel * scale).astype(dtype)`` bit for bit."""
+    gain = np.float32(1.0) / np.sqrt(np.float32(fan_in))
+    return float(gain * np.float32(lr_mul))
+
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # truncated distribution has variance 1 / fan_in
@@ -68,11 +114,12 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class EqualLinear(nn.Module):
+class EqualLinear(Precision, nn.Module):
     """``y = x @ (W * lr_mul / sqrt(in)).T + b * lr_mul``.
 
     With ``activation="fused_lrelu"`` the bias is applied inside kernel K1
-    (``fused_leaky_relu``) instead. The stored weight is ``randn / lr_mul``.
+    (``fused_leaky_relu``, which rounds it to ``y``'s dtype) instead. The
+    stored weight is ``randn / lr_mul``.
     """
 
     def __init__(self, in_dim: int, out_dim: int, *, bias_init: float = 0.0,
@@ -87,16 +134,17 @@ class EqualLinear(nn.Module):
                                             device=device))
         with torch.no_grad():
             self.weight.normal_(generator=generator).div_(lr_mul)
-        self.scale = lr_mul / math.sqrt(in_dim)
+        self.scale = equalized_gain(in_dim, lr_mul)
         self.lr_mul = lr_mul
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight * self.scale)
+        dt = self.dtype
+        y = F.linear(x.to(dt), (self.weight * self.scale).to(dt))
         bias = self.bias * self.lr_mul
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(y, bias)
-        return y + bias
+        return y + bias.to(dt)
 
 
 class PixelNorm(nn.Module):
@@ -167,8 +215,9 @@ class GroupNorm(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-class Conv(nn.Conv2d):
-    """``nn.Conv2d`` with the JAX package's init (lecun-normal, zero bias)."""
+class Conv(Precision, nn.Conv2d):
+    """``nn.Conv2d`` with the JAX package's init (lecun-normal, zero bias),
+    computing in ``dtype``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1,
                  padding=0, bias: bool = True, *, device=None,
@@ -184,9 +233,15 @@ class Conv(nn.Conv2d):
         """No-op: the base constructor would draw from the global RNG;
         ``__init__`` initializes from its generator instead."""
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
-class Linear(nn.Linear):
-    """``nn.Linear`` with flax ``Dense``'s init (lecun-normal, zero bias)."""
+
+class Linear(Precision, nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s init (lecun-normal, zero bias),
+    computing in ``dtype``."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *,
                  device=None, generator: torch.Generator):
@@ -198,12 +253,28 @@ class Linear(nn.Linear):
     def reset_parameters(self):
         """No-op, as ``Conv.reset_parameters``."""
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(Precision, nn.LayerNorm):
+    """``nn.LayerNorm`` computed as flax's ``LayerNorm(dtype=...)``: the
+    statistics, normalization and affine in f32 (f32 parameters), the
+    output rounded once to ``dtype``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.dtype)
+
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / v.norm().clamp(min=eps)
 
 
-class SNConv(nn.Module):
+class SNConv(Precision, nn.Module):
     """Conv2d with spectral weight normalization (torch semantics).
 
     State (reference keys): ``weight_orig`` (O, I, kh, kw), ``bias`` (when
@@ -243,8 +314,9 @@ class SNConv(nn.Module):
         self.register_buffer("weight_v", v)
 
     def normalized_weight(self) -> torch.Tensor:
-        """The normalized kernel ``weight_orig / sigma`` (f32 sigma); in
-        training mode after one power iteration that updates u and v."""
+        """The normalized kernel ``weight_orig / sigma`` (f32 sigma),
+        rounded once to ``dtype``; in training mode after one power
+        iteration that updates u and v."""
         w = self.weight_orig
         w_mat = w.float().reshape(w.shape[0], -1)
         # copies: a later training-mode forward updates the buffers in
@@ -257,10 +329,11 @@ class SNConv(nn.Module):
                 self.weight_u.copy_(u)
                 self.weight_v.copy_(v)
         sigma = torch.dot(u, w_mat @ v)
-        return (w.float() / sigma).to(w.dtype)
+        return (w.float() / sigma).to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.normalized_weight(), self.bias,
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.normalized_weight(), bias,
                         stride=self.stride, padding=self.padding)
 
 

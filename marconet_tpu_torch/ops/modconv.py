@@ -16,19 +16,23 @@ and ``activate.bias`` (O,).
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from marconet_tpu_torch.ops.fused_act import FusedLeakyReLU, fused_leaky_relu
-from marconet_tpu_torch.ops.layers import EqualLinear
+from marconet_tpu_torch.ops.layers import (
+    EqualLinear,
+    Precision,
+    equalized_gain,
+)
 from marconet_tpu_torch.ops.resize import upsample2x_bilinear
 
 
-class ModulatedConv2d(nn.Module):
-    """Style-modulated conv with activation-folded (de)modulation."""
+class ModulatedConv2d(Precision, nn.Module):
+    """Style-modulated conv with activation-folded (de)modulation, in
+    ``dtype``: the weight scaled in its own dtype and rounded once, the
+    demodulation from the f32 weight, as the JAX package's."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  style_dim: int, *, demodulate: bool = True,
@@ -42,7 +46,7 @@ class ModulatedConv2d(nn.Module):
             self.weight.normal_(generator=generator)
         self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0,
                                       device=device, generator=generator)
-        self.scale = 1.0 / math.sqrt(in_ch * k * k)
+        self.scale = equalized_gain(in_ch * k * k)
         self.padding = k // 2
         self.demodulate = demodulate
         self.upsample = upsample
@@ -50,8 +54,8 @@ class ModulatedConv2d(nn.Module):
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         """x: (B, I, H, W) channels_last; style: (B, style_dim)."""
         s = self.modulation(style)                             # (B, I)
-        w = (self.weight[0] * self.scale).to(x.dtype)          # (O, I, k, k)
-        x = x * s[:, :, None, None]
+        w = (self.weight[0] * self.scale).to(self.dtype)       # (O, I, k, k)
+        x = x.to(self.dtype) * s[:, :, None, None]
         if self.upsample:
             x = upsample2x_bilinear(x)
         y = F.conv2d(x, w, padding=self.padding)
@@ -82,7 +86,8 @@ class StyledConv(nn.Module):
         # K1 reads channels_last; cuDNN's convs keep it (a no-op then),
         # PyTorch's native CUDA convs return NCHW-contiguous
         y = self.conv(x, style).contiguous(memory_format=torch.channels_last)
-        # both biases are added before the activation: one K1 call
+        # both biases are added (in their dtype) before the activation:
+        # one K1 call, which rounds the sum to y's dtype
         return fused_leaky_relu(y, self.bias.view(-1) + self.activate.bias)
 
 
@@ -98,7 +103,8 @@ class ToRGB(nn.Module):
         self.upsample = upsample
 
     def forward(self, x, style, skip=None):
-        y = self.conv(x, style) + self.bias
+        y = self.conv(x, style)
+        y = y + self.bias.to(y.dtype)
         if skip is not None:
             if self.upsample:
                 skip = upsample2x_bilinear(skip)

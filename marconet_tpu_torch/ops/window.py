@@ -46,7 +46,9 @@ def resample2tap(img: torch.Tensor, idx: torch.Tensor,
 
     ``out[b, n, h, k] = w0 * img[b, h, idx] + (1 - w0) * img[b, h, idx+1]``
     with ``idx + 1`` clamped to ``W - 1``: the fixed-shape crop-and-resize
-    of the training char crops (JAX ``ops/window.py:139-189``).
+    of the training char crops (JAX ``ops/window.py:139-189``). The f32
+    weights promote the taps as JAX promotes them: a bf16 image gives f32
+    crops.
     """
     b, h, w, _ = img.shape
     dev = img.device
@@ -56,5 +58,5 @@ def resample2tap(img: torch.Tensor, idx: torch.Tensor,
     hi = torch.arange(h, device=dev)[None, None, :, None]
     a = img[bi, hi, i0[:, :, None, :]]                       # (B,N,H,K,C)
     c = img[bi, hi, i1[:, :, None, :]]
-    wt = w0[:, :, None, :, None].to(img.dtype)
+    wt = w0[:, :, None, :, None].float()
     return a * wt + c * (1.0 - wt)

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from marconet_tpu_torch.ops.layers import Conv
+from marconet_tpu_torch.ops.layers import Conv, Precision
 
 # VGG16 conv plan: (channels, convs in block); taps after each block's relu
 _VGG_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -53,10 +53,12 @@ class _LinHead(nn.Module):
         return self.model(x)
 
 
-class LPIPS(nn.Module):
+class LPIPS(Precision, nn.Module):
     """Perceptual distance of two NCHW batches in [-1, 1] -> (B,).
 
     ``width`` scales the VGG channel plan (1.0 = torchvision's VGG16).
+    The scaling layer's constants are taken in ``dtype`` and promote with
+    the input, as the JAX package's ``jnp.asarray(_SHIFT, dtype)``.
     """
 
     def __init__(self, width: float = 1.0, *, device=None,
@@ -85,7 +87,7 @@ class LPIPS(nn.Module):
         self.requires_grad_(False)
 
     def _feats(self, x):
-        x = (x - self.shift.to(x.dtype)) / self.scale.to(x.dtype)
+        x = (x - self.shift.to(self.dtype)) / self.scale.to(self.dtype)
         taps = []
         for i, layer in enumerate(self.features):
             x = layer(x)

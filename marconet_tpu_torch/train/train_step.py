@@ -26,6 +26,13 @@ The state is plain PyTorch: the five nets (with their spectral buffers),
 the five optimizers and the step count; ``state_dict`` /
 ``load_state_dict`` carry all of it (``train/checkpoint.py``).
 
+Precision (the JAX trainer's ``dtype``): ``dtype=torch.bfloat16`` makes
+every net and LPIPS compute in bf16 over float32 parameters (the
+bf16-where-safe policy of the JAX package's ``tools/bench_train.py``).
+Parameters, their ``.grad``, the Adam states, the spectral vectors and the
+batch stay float32, and the losses are taken in f32 (``train/losses.py``),
+so the state and its checkpoints are the same as an f32 trainer's.
+
 Data parallelism (``parallel/distributed.py``): with a process group of
 ``world`` ranks, each step takes this rank's rows of the global batch
 (``TrainBatch`` stays per rank). One ``all_reduce`` sums the batch's three
@@ -50,7 +57,7 @@ from marconet_tpu_torch.models.encoder import MAX_CHARS, TextContextEncoder
 from marconet_tpu_torch.models.pipeline import resolve_device
 from marconet_tpu_torch.models.prior import StructurePriorGenerator
 from marconet_tpu_torch.models.srnet import StructurePriorSRNet
-from marconet_tpu_torch.ops.layers import nchw, nhwc
+from marconet_tpu_torch.ops.layers import nchw, nhwc, set_compute_dtype
 from marconet_tpu_torch.ops.resize import resize_bilinear
 from marconet_tpu_torch.ops.window import resample2tap
 from marconet_tpu_torch.parallel import distributed
@@ -212,6 +219,8 @@ class MARCONetTrainer:
       lpips_dir: directory holding the pretrained LPIPS weights.
       allow_random_lpips: train with a random VGG when those weights are
         absent (refused otherwise).
+      dtype: compute dtype of the nets and LPIPS, float32 or bfloat16;
+        parameters and optimizer states are float32 either way.
     """
 
     def __init__(self, config: TrainConfig = TrainConfig(), *,
@@ -220,8 +229,10 @@ class MARCONetTrainer:
                  width: Optional[float] = None,
                  max_chars: Optional[int] = None,
                  lpips_dir: Optional[str] = None,
-                 allow_random_lpips: bool = False):
+                 allow_random_lpips: bool = False,
+                 dtype: torch.dtype = torch.float32):
         self.cfg = config
+        self.dtype = dtype
         self.device = resolve_device(device)
         self.width = config.width if width is None else width
         self.max_chars = config.max_chars if max_chars is None else max_chars
@@ -240,6 +251,8 @@ class MARCONetTrainer:
         self.lpips = LPIPS(self.width, **kw).eval()
         check_lpips_weights(load_lpips(self.lpips, lpips_dir) is not None,
                             allow_random_lpips)
+        for module in (*(self.net(n) for n in NETS), self.lpips):
+            set_compute_dtype(module, dtype)
 
         c = config
         g_ratio = c.g_reg_every / (c.g_reg_every + 1)
@@ -485,7 +498,8 @@ class MARCONetTrainer:
     def visual_forward(self, batch: TrainBatch) -> Dict[str, torch.Tensor]:
         """Eval pass for the periodic image grids (reference
         ``tspgan_model.py:244-314``): encoder -> priors -> SR with frozen
-        spectral vectors. NHWC outputs, as the JAX package's."""
+        spectral vectors, in the trainer's compute dtype. NHWC outputs, as
+        the JAX package's."""
         b, n = batch.lq.shape[0], self.max_chars
         lq = nchw(batch.lq)
         modes = {name: self.net(name).training
