@@ -18,7 +18,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    times of both, and each kernel's bound (the larger of its bytes over
    the card's memory rate and its operations over the f32 peak); K1's
    achieved GB/s beside the memory rate. The backward kernels report f32
-   and bf16 (``bf16_*`` keys) at the largest training shape.
+   and bf16 (``bf16_*`` keys) at the largest training shape, and are held
+   on their pack-of-one paths too (C a multiple of neither 16-byte pack,
+   and x or g one element past an aligned address).
 4. conv3x3: K3 (the 3x3 implicit-GEMM conv) on its paths, the SFT window
    convs of one serving batch in bf16 (12 launches, counted, all on the
    TMA + wgmma kernel) and in f32 (12 launches, all on the FMA kernel);
@@ -90,7 +92,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    that the resumed step, learning rates and Adam counts continue;
    prints the loop's samples/s beside phase 10's, the queue wait a step,
    the device's idle share over the profiled steps, one worker's host ms
-   a batch by stage and ``os.cpu_count()``.
+   a batch by stage (``degradation`` includes the libjpeg-exact JPEG step
+   of BSRGAN) and ``os.cpu_count()``.
 14. data-parallel training: (a) ``train.loop.train`` from
    ``options/train.yml`` at full width for 4 steps under a one-rank NCCL
    process group started by ``parallel.distributed.maybe_initialize``:
@@ -112,7 +115,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 
 15. image input and the last tools: every JPEG fixture of
    ``tests/data/jpeg/`` decoded by ``utils/jpeg.py`` equal to its committed
-   cv2 decode, with host ms a decode of the three timed ones; phase 12's
+   cv2 decode, with host ms a decode of the three timed ones;
+   ``jpeg_roundtrip_u8`` on the sources of ``tests/data/jpeg/roundtrip/``
+   equal to the decode of cv2's encodes of them at qualities 30, 60 and
+   95, with host ms a round trip beside ``jpeg_np``'s; phase 12's
    lines written as BMP (a writer in this script) through ``test_sr -m``,
    ``serve_demo`` (front-end, ``--repeat`` 4) and ``test_w``, every output
    file equal to phase 12's from PNG bit for bit, ``w.gif`` walked block
@@ -236,7 +242,12 @@ from marconet_tpu_torch.train.train_step import (
     lr_at,
 )
 from marconet_tpu_torch.convert import REFERENCE_FILES
-from marconet_tpu_torch.utils.jpeg import read_jpeg
+from marconet_tpu_torch.data.degrade.diffjpeg import jpeg_np
+from marconet_tpu_torch.utils.jpeg import (
+    decode_jpeg,
+    jpeg_roundtrip_u8,
+    read_jpeg,
+)
 from marconet_tpu_torch.utils.png import read_png, write_png
 
 SERVE_BATCH = 16    # bench.py's workload: 16 lines of 8 characters
@@ -342,10 +353,10 @@ def phase_build() -> None:
 
 
 def _k2_case(gen: np.random.Generator, tgen: torch.Generator, b: int,
-             height: int, width: int, hw: int, dtype, dev):
+             height: int, width: int, hw: int, dtype, dev, c: int = 256):
     """The sft_32 / sft_64 write-back shapes with S=16 slots: rows mix
     overlapping windows, truncated edge windows and invalid slots."""
-    s, c = 16, 256
+    s = 16
     locs = np.zeros((b, 2 * s), np.float32)
     for i in range(b):
         kind = i % 3
@@ -509,10 +520,80 @@ def phase_kernels() -> dict:
                 elif name == "sft_writeback_bwd" and label == "sft_64 train":
                     rep.update(_bf16_row(ms, plain_ms, bound_ms, bound_by))
             del canvas, res, g
+    _pack_of_one_cases(gen, tgen, dev, report)
     torch.cuda.empty_cache()
     for rep in report.values():
         rep["library_ms"] = None      # no one PyTorch call computes these
     return report
+
+
+def _misaligned(shape, dtype, dev, tgen) -> torch.Tensor:
+    """A contiguous tensor one element past a 16-byte aligned address."""
+    n = math.prod(shape)
+    buf = torch.randn(n + 1, device=dev, generator=tgen).to(dtype)
+    out = buf[1:].view(shape)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _pack_of_one_cases(gen, tgen, dev, report) -> None:
+    """The backward kernels where 16-byte packs do not fit, so each runs
+    with a pack of one element: C = 127 (K1b) / 254 (K2 bwd), a multiple of
+    neither pack (8 bf16, 4 f32), and a 16-byte pack's C with x or g one
+    element past an aligned address; bit-exact to the plain versions."""
+    rows = TRAIN_BATCH * TRAIN_SLOTS
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        size = torch.tensor([], dtype=dtype).element_size()
+        odd = (rows, 64, 64, 127)               # NHWC storage
+        x = torch.randn(odd, device=dev, generator=tgen).to(dtype)
+        g = torch.randn(odd, device=dev, generator=tgen).to(dtype)
+        k1b = {f"C=127 ({rows}, 127, 64, 64)": (x.permute(0, 3, 1, 2),
+                                               g.permute(0, 3, 1, 2)),
+               f"misaligned x ({rows * 64 * 64}, 128)":
+                   (_misaligned((rows * 64 * 64, 128), dtype, dev, tgen),
+                    torch.randn(rows * 64 * 64, 128, device=dev,
+                                generator=tgen).to(dtype))}
+        for label, (x, g) in k1b.items():
+            bias = torch.randn(x.shape[1], device=dev, generator=tgen)
+            n, c = x.numel(), x.shape[1]
+            _held("fused_leaky_relu_bwd", f"K1b {label}", dn, report,
+                  lambda: fused_leaky_relu_bwd(x, bias, g),
+                  lambda: fused_leaky_relu_bwd_plain(x, bias, g),
+                  _bound(3 * n * size + c * size, 3 * n))
+        del x, g, k1b
+        height, width, hw = 64, 1024, 32
+        for label, c, shift in (("C=254", 254, False),
+                                ("misaligned g, C=256", 256, True)):
+            canvas, res, x1, length, valid = _k2_case(
+                gen, tgen, TRAIN_BATCH, height, width, hw, dtype, dev, c)
+            win = 2 * hw
+            cov = _covered_columns(x1, length, valid, width, win)
+            g = (_misaligned(canvas.shape, dtype, dev, tgen) if shift else
+                 torch.randn(canvas.shape, device=dev, generator=tgen).to(
+                     dtype))
+            tables = 3 * x1.numel() * 4
+            _held("sft_writeback_bwd",
+                  f"K2 backward sft_64 train {label} B={TRAIN_BATCH}", dn,
+                  report,
+                  lambda: sft_writeback_bwd(g, x1, length, valid, win),
+                  lambda: sft_writeback_bwd_plain(g, x1, length, valid,
+                                                  win),
+                  _bound((res.numel() + cov * height * c) * size + tables,
+                         0))
+            del canvas, res, g
+
+
+def _held(name, label, dn, report, kern, plain, bound) -> None:
+    """One case of a kernel held bit-exact to its plain version, timed."""
+    bound_ms, bound_by = bound
+    err = max_abs(kern(), plain())
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    say(f"[kernels] {label} {dn} (pack of one): max_abs_err={err} kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    _check_exact(name, f"{label}, {dn}", err)
+    report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
 
 
 def _lines(gen: np.random.Generator, batch: int, slots: int,
@@ -2545,6 +2626,7 @@ def _dp_two_ranks(smi: str) -> dict:
 
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "data", "jpeg")
+JPEG_ROUNDTRIP = os.path.join(JPEG_FIXTURES, "roundtrip")
 JPEG_TIMED = ("line_512x32_420", "line_1400x72_progressive", "bg_400x400")
 JPEG_REPEATS = 5
 GIF_DELAY_CS = 10
@@ -2754,6 +2836,43 @@ def _io_decode(smi: str) -> None:
         + f"; os.cpu_count() {os.cpu_count()}; card {smi}")
 
 
+def _io_roundtrip(smi: str) -> None:
+    """``jpeg_roundtrip_u8`` (the BSRGAN and paired degradations' JPEG
+    step) on the committed sources equals the decode of cv2's encodes of
+    them at each committed quality; host ms a round trip, beside
+    ``jpeg_np``'s (the numpy DCT round trip it replaced there)."""
+    times = []
+    names = sorted(os.listdir(JPEG_ROUNDTRIP))
+    for src_name in (n for n in names if n.endswith(".png")):
+        src = read_png(os.path.join(JPEG_ROUNDTRIP, src_name))
+        stem = src_name[:-4]
+        jpgs = [n for n in names if n.startswith(stem + "_q")]
+        if not jpgs:
+            raise AssertionError(f"{src_name}: no encodes beside it")
+        for jpg in jpgs:
+            quality = int(jpg[len(stem) + 2:-4])
+            with open(os.path.join(JPEG_ROUNDTRIP, jpg), "rb") as f:
+                want = decode_jpeg(f.read())
+            got = jpeg_roundtrip_u8(src, quality)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{jpg}: jpeg_roundtrip_u8 differs "
+                                     "from the decode of cv2's encode")
+            ms, np_ms = [], []
+            for _ in range(JPEG_REPEATS):
+                t0 = time.perf_counter()
+                jpeg_roundtrip_u8(src, quality)
+                t1 = time.perf_counter()
+                jpeg_np(src / np.float32(255), quality)
+                ms.append((t1 - t0) * 1e3)
+                np_ms.append((time.perf_counter() - t1) * 1e3)
+            times.append(f"{jpg} {statistics.median(ms):.3f} "
+                         f"({statistics.median(np_ms):.3f})")
+    say("[io] jpeg_roundtrip_u8 equals the decode of cv2's encode, byte for "
+        f"byte, on {len(times)} fixtures; host ms a round trip, median of "
+        f"{JPEG_REPEATS} (jpeg_np's in brackets): " + ", ".join(times)
+        + f"; card {smi}")
+
+
 def _io_parity(work: str, add) -> None:
     """``parity_report`` twice at full width (f32) on checkpoints in the
     reference's key names from the port's own seeded nets, a PNG line and
@@ -2919,6 +3038,7 @@ def phase_io_tools(smi: str, ckpt_dir: str, work: str) -> dict:
             launches[k] += v
 
     _io_decode(smi)
+    _io_roundtrip(smi)
     _io_cli(smi, ckpt_dir, work, add)
     _io_parity(work, add)
     _io_profile(smi, work, add)

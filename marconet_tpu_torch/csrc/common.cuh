@@ -29,4 +29,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// kVec consecutive channels, moved as one access (16 bytes when kVec > 1)
+template <typename T, int kVec>
+struct alignas(sizeof(T) * kVec) Pack {
+  T e[kVec];
+};
+
 }  // namespace marconet

@@ -11,12 +11,11 @@ Input/output: (H, W, 3) RGB float32 in [0,1].
 
 Counterpart of ``marconet_tpu/data/degrade/bsrgan.py`` with the same
 random draws in the same order; its cv2 resizes are the port's own
-``utils/image.resize``. **Deviation:** the JAX package's ``_add_jpeg`` is a
-libjpeg round trip (``cv2.imencode`` / ``cv2.imdecode``), which the card's
-machine lacks; here it is the numpy DCT round trip ``jpeg_np`` at the same
-drawn quality, with the same uint8 quantisation before and after. Its
-distance from libjpeg is measured and bounded in
-``tests/test_torch_degrade.py::test_bsrgan_jpeg_deviation``.
+``utils/image.resize``. The JAX package's ``_add_jpeg`` is a libjpeg round
+trip (``cv2.imencode`` / ``cv2.imdecode``); here it is
+``utils/jpeg.jpeg_roundtrip_u8``, which computes libjpeg-turbo's
+coefficients and decodes them as libjpeg-turbo does: the same bytes
+(``tests/test_torch_degrade.py::test_bsrgan_jpeg_deviation``).
 """
 
 from __future__ import annotations
@@ -28,7 +27,6 @@ from scipy import ndimage
 
 from marconet_tpu_torch.data.degrade import kernels as K
 from marconet_tpu_torch.data.degrade.camera_isp import camera_isp_noise
-from marconet_tpu_torch.data.degrade.diffjpeg import jpeg_np
 from marconet_tpu_torch.data.imutils import (
     imresize_np,
     single2uint,
@@ -41,6 +39,7 @@ from marconet_tpu_torch.utils.image import (
     INTER_LINEAR,
     resize,
 )
+from marconet_tpu_torch.utils.jpeg import jpeg_roundtrip_u8
 
 # drawn by code, as the JAX package draws cv2's codes from the same lists
 _CV2_M = [INTER_LINEAR, INTER_CUBIC, INTER_AREA]
@@ -83,11 +82,9 @@ def _add_gaussian_noise(rng, img, level1=3, level2=25):
 
 
 def _add_jpeg(rng, img, q_lo=30, q_hi=85):
-    """JPEG at a drawn quality on the uint8 grid (deviation: the DCT round
-    trip ``jpeg_np`` in place of libjpeg; see the module docstring)."""
+    """libjpeg's JPEG round trip at a drawn quality on the uint8 grid."""
     q = int(rng.integers(q_lo, q_hi + 1))
-    dec = jpeg_np(uint2single(single2uint(img)), q)
-    return uint2single(single2uint(dec))
+    return uint2single(jpeg_roundtrip_u8(single2uint(img), q))
 
 
 def bsrgan_degradation(img: np.ndarray, sf: int = 4,

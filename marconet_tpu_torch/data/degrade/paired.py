@@ -10,10 +10,10 @@ same draws from the same seed as the JAX package's.
 
 Without cv2: the resize modes are OpenCV's codes for
 ``utils/image.resize`` (``INTER_LINEAR`` / ``INTER_CUBIC`` / ``INTER_AREA``,
-cv2's float results); the blur stays ``scipy.ndimage``. **Deviation:** the
-JAX module's JPEG step is a libjpeg round trip through cv2; here it is the
-numpy DCT round trip ``jpeg_np`` on the uint8 grid, as BSRGAN's
-``_add_jpeg`` of the port (``data/degrade/bsrgan.py``).
+cv2's float results); the blur stays ``scipy.ndimage``. The JAX module's
+JPEG step is a libjpeg round trip through cv2; here it is
+``utils/jpeg.jpeg_roundtrip_u8`` on the uint8 grid, byte for byte the same,
+as BSRGAN's ``_add_jpeg`` of the port (``data/degrade/bsrgan.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from scipy import ndimage
 
 from marconet_tpu_torch.data.degrade import kernels as K
 from marconet_tpu_torch.data.degrade.camera_isp import camera_isp_noise
-from marconet_tpu_torch.data.degrade.diffjpeg import jpeg_np
 from marconet_tpu_torch.data.imutils import single2uint, uint2single
 from marconet_tpu_torch.utils.image import (
     INTER_AREA,
@@ -33,6 +32,7 @@ from marconet_tpu_torch.utils.image import (
     INTER_LINEAR,
     resize,
 )
+from marconet_tpu_torch.utils.jpeg import jpeg_roundtrip_u8
 
 _MODES = [INTER_LINEAR, INTER_CUBIC, INTER_AREA]
 
@@ -74,10 +74,9 @@ def get_degrade_seq(rng: np.random.Generator, sf: int = 4
 
 
 def jpeg_u8(img: np.ndarray, quality: int) -> np.ndarray:
-    """JPEG round trip of an RGB [0, 1] image at ``quality``, on the uint8
-    grid in and out (``jpeg_np`` in place of libjpeg)."""
-    dec = jpeg_np(uint2single(single2uint(img)), quality)
-    return uint2single(single2uint(dec))
+    """libjpeg's JPEG round trip of an RGB [0, 1] image at ``quality``, on
+    the uint8 grid in and out."""
+    return uint2single(jpeg_roundtrip_u8(single2uint(img), quality))
 
 
 def apply_degrade_seq(img: np.ndarray,

@@ -108,7 +108,11 @@ def fused_leaky_relu_bwd(x: torch.Tensor, bias: torch.Tensor,
     ``x`` and ``grad`` share shape, dtype and layout ((rows, C) contiguous
     or NCHW channels_last). CPU tensors take
     :func:`fused_leaky_relu_bwd_plain`; CUDA tensors launch kernel K1b
-    (counted in ``fused_leaky_relu_bwd.launches``).
+    (counted in ``fused_leaky_relu_bwd.launches``). K1b walks the rows as
+    K1 does, a 16-byte pack of channels a thread (a pack of one element
+    where C or a pointer does not allow 16 bytes): its earlier scalar
+    loop, a 64-bit ``i % C`` and 2-byte accesses per element, ran bf16 at
+    its f32 time, 42% of its bound.
     """
     c = _channel_count(x)
     if grad.dtype != x.dtype or grad.shape != x.shape:

@@ -128,7 +128,12 @@ def sft_writeback_bwd(grad, x1, lengths, valid, win: int):
 
     CPU tensors take :func:`sft_writeback_bwd_plain`; CUDA tensors launch
     ``marconet_sft_writeback_bwd`` (counted in
-    ``sft_writeback_bwd.launches``).
+    ``sft_writeback_bwd.launches``): a block decides the winners of a
+    chunk of window columns once, into shared memory, then its threads
+    copy 16-byte packs of g (or store zero packs) over a 2-D layout of
+    channel packs x rows, with no per-element division. Its earlier
+    design, a 64-bit ``e / C`` and 2-byte stores per element, ran bf16 at
+    its f32 time, 35% of its bound.
     """
     if grad.dim() != 4 or not grad.is_contiguous():
         raise ValueError("sft_writeback_bwd: grad must be a contiguous "

@@ -1,4 +1,5 @@
-"""JPEG decoding in numpy, equal to what the JAX package gets from cv2.
+"""JPEG decoding, and the JPEG round trip, in numpy, equal to what the JAX
+package gets from cv2.
 
 :func:`read_jpeg` returns what ``cv2.cvtColor(cv2.imread(path,
 cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)`` returns: an (H, W, 3) uint8 RGB
@@ -30,6 +31,14 @@ scans stop before its coefficients are complete, a file without its EOI
 marker) raises a ``ValueError`` that names the file; a file that libjpeg
 refuses too (no frame or scan, bad tables) raises :class:`CorruptImage`.
 The entropy decoding is a Python loop on the host.
+
+:func:`jpeg_roundtrip_u8` is ``cv2.imdecode(cv2.imencode(".jpg", ...))``
+at a quality, byte for byte: :func:`encode_coefficients` computes the
+quantized coefficients libjpeg-turbo's encoder writes with cv2's defaults
+(``jccolor.c``, ``jcsample.c`` / ``jcprepct.c``, ``jfdctint.c``,
+``jcdctmgr.c``, ``jcparam.c``, ``jccoefct.c``), and the decoder's output
+stage (:func:`samples_to_rgb`) turns them into pixels. Huffman coding is
+lossless, so neither side runs it.
 """
 
 from __future__ import annotations
@@ -317,6 +326,13 @@ class _Decoder:
     # -- markers -------------------------------------------------------------
 
     def decode(self) -> np.ndarray:
+        self.parse()
+        return apply_orientation(self._output(),
+                                 _orientation(self.exif or b""))
+
+    def parse(self) -> None:
+        """Read every marker and scan up to EOI: the frame, the tables and
+        each component's coefficients."""
         data = self.data
         if not data.startswith(b"\xff\xd8"):
             self.corrupt("not a JPEG file")
@@ -367,8 +383,6 @@ class _Decoder:
                 self.adobe = body[11]
         if not self.comps or self.comps[0].coef is None:
             self.corrupt("JPEG without image data")
-        return apply_orientation(self._output(),
-                                 _orientation(self.exif or b""))
 
     def _sof(self, marker: int, body: bytes) -> None:
         if self.comps:
@@ -683,22 +697,45 @@ class _Decoder:
                     self.fail("progressive JPEG whose scans leave "
                               "coefficients incomplete (libjpeg would "
                               "smooth its blocks) is not supported")
-        planes = []
-        for c in self.comps:
-            coef = np.array(c.coef, np.int64).reshape(c.bh, c.bw, 64)
-            blocks = idct_islow(coef, c.quant)          # (bh, bw, 8, 8)
-            plane = blocks.transpose(0, 2, 1, 3).reshape(c.bh * 8,
-                                                         c.bw * 8)
-            plane = plane[:c.dh, :c.dw]
-            full = upsample(plane, self.hmax // c.h, self.vmax // c.v)
-            planes.append(full[:self.height, :self.width])
-        if len(planes) == 1:
-            return np.repeat(planes[0][:, :, None], 3, axis=2)
         ids = [c.id for c in self.comps]
-        if (not self.jfif and self.adobe == 0) or \
-                (not self.jfif and self.adobe is None and ids == [82, 71, 66]):
-            return np.stack(planes, axis=-1)            # stored as RGB
-        return ycc_to_rgb(*planes)
+        stored_rgb = (not self.jfif and self.adobe == 0) or \
+            (not self.jfif and self.adobe is None and ids == [82, 71, 66])
+        return samples_to_rgb(self.coefficients(),
+                              [c.quant for c in self.comps],
+                              [(c.h, c.v) for c in self.comps],
+                              self.height, self.width, ycc=not stored_rgb)
+
+    def coefficients(self) -> List[np.ndarray]:
+        """Each component's quantized coefficients, (bh, bw, 64) int64 in
+        natural order over its MCU-padded block grid."""
+        return [np.array(c.coef, np.int64).reshape(c.bh, c.bw, 64)
+                for c in self.comps]
+
+
+def samples_to_rgb(coefs: List[np.ndarray], quants: List[np.ndarray],
+                   factors: List[Tuple[int, int]], height: int, width: int,
+                   ycc: bool = True) -> np.ndarray:
+    """The decoder's output stage: each component's (bh, bw, 64)
+    coefficients through :func:`idct_islow` with its quantization table,
+    cropped to its downsampled size, upsampled (:func:`upsample`) by its
+    (h, v) sampling factors, cropped to (height, width), then
+    :func:`ycc_to_rgb` (``ycc``) or taken as stored -> (H, W, 3) uint8 (one
+    component: gray replicated into three channels)."""
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    planes = []
+    for coef, quant, (h, v) in zip(coefs, quants, factors):
+        bh, bw = coef.shape[:2]
+        blocks = idct_islow(coef, quant)                # (bh, bw, 8, 8)
+        plane = blocks.transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
+        plane = plane[:-(-height * v // vmax), :-(-width * h // hmax)]
+        full = upsample(plane, hmax // h, vmax // v)
+        planes.append(full[:height, :width])
+    if len(planes) == 1:
+        return np.repeat(planes[0][:, :, None], 3, axis=2)
+    if not ycc:
+        return np.stack(planes, axis=-1)
+    return ycc_to_rgb(*planes)
 
 
 def read_jpeg(source: Union[str, bytes]) -> np.ndarray:
@@ -713,3 +750,200 @@ def read_jpeg(source: Union[str, bytes]) -> np.ndarray:
 def decode_jpeg(data: bytes, name: str = "<JPEG bytes>") -> np.ndarray:
     """:func:`read_jpeg` of a file's bytes; ``name`` names it in errors."""
     return _Decoder(data, name).decode()
+
+
+def jpeg_coefficients(data: bytes, name: str = "<JPEG bytes>"
+                      ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """The quantized coefficients a file stores, as the decoder reads them:
+    each component's (bh, bw, 64) int64 array in natural order over its
+    MCU-padded block grid, and its (64,) quantization table."""
+    dec = _Decoder(data, name)
+    dec.parse()
+    return dec.coefficients(), [c.quant for c in dec.comps]
+
+
+# ---------------------------------------------------------------------------
+# the encoder: libjpeg-turbo's quantized coefficients for what cv2.imencode
+# writes by default (baseline, 4:2:0, the standard tables scaled by quality)
+# ---------------------------------------------------------------------------
+
+# jcparam.c's std_luminance_quant_tbl / std_chrominance_quant_tbl, natural
+# order
+_STD_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64)
+_STD_CHROMA = np.full(64, 99, np.int64)
+_STD_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = \
+    [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+
+
+def quant_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``jcparam.c::jpeg_set_quality(quality, force_baseline=TRUE)``: the
+    luminance and chrominance tables, (64,) int64 in natural order."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q     # jpeg_quality_scaling
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255)
+                 for t in (_STD_LUMA, _STD_CHROMA))
+
+
+def _encode_tables():
+    """``jccolor.c::rgb_ycc_start`` (``SCALEBITS`` 16): per-channel terms
+    of Y, Cb and Cr, each (3, 256) int64 for R, G, B."""
+    x = np.arange(256, dtype=np.int64)
+    half, offset = 1 << 15, 128 << 16
+    y = np.stack([_fix(0.29900) * x, _fix(0.58700) * x,
+                  _fix(0.11400) * x + half])
+    cb = np.stack([-_fix(0.16874) * x, -_fix(0.33126) * x,
+                   _fix(0.50000) * x + offset + half - 1])
+    cr = np.stack([_fix(0.50000) * x + offset + half - 1,
+                   -_fix(0.41869) * x, -_fix(0.08131) * x])
+    return y, cb, cr
+
+
+_RGB_YCC = _encode_tables()
+
+
+def _fdct_1d(d, shift1: int, shift2: int):
+    """One pass of ``jfdctint.c::jpeg_fdct_islow`` over eight sample
+    arrays: the even outputs 0 / 4 scaled by 2 ** ``shift1`` (negative:
+    descaled), the rest descaled by ``shift2`` bits."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    if shift1 >= 0:
+        out0, out4 = (tmp10 + tmp11) << shift1, (tmp10 - tmp11) << shift1
+    else:
+        out0 = descale(tmp10 + tmp11, -shift1)
+        out4 = descale(tmp10 - tmp11, -shift1)
+    z1 = (tmp12 + tmp13) * 4433                    # FIX_0_541196100
+    out2 = descale(z1 + tmp13 * 6270, shift2)      # FIX_0_765366865
+    out6 = descale(z1 + tmp12 * -15137, shift2)    # FIX_1_847759065
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633                          # FIX_1_175875602
+    tmp4 = tmp4 * 2446                             # FIX_0_298631336
+    tmp5 = tmp5 * 16819                            # FIX_2_053119869
+    tmp6 = tmp6 * 25172                            # FIX_3_072711026
+    tmp7 = tmp7 * 12299                            # FIX_1_501321110
+    z1 = z1 * -7373                                # FIX_0_899976223
+    z2 = z2 * -20995                               # FIX_2_562915447
+    z3 = z3 * -16069 + z5                          # FIX_1_961570560
+    z4 = z4 * -3196 + z5                           # FIX_0_390180644
+    return [out0, descale(tmp7 + z1 + z4, shift2), out2,
+            descale(tmp6 + z2 + z3, shift2), out4,
+            descale(tmp5 + z2 + z4, shift2), out6,
+            descale(tmp4 + z1 + z3, shift2)]
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """``jcdctmgr.c::convsamp`` (level shift by 128) and
+    ``jfdctint.c::jpeg_fdct_islow`` over (..., 8, 8) samples -> (..., 64)
+    int64 coefficients in natural order, scaled up by 8."""
+    x = blocks.astype(np.int64).reshape(-1, 8, 8) - 128
+    # pass 1: rows, scaled up by 2 ** PASS1_BITS
+    ws = _fdct_1d([x[:, :, k] for k in range(8)], 2, 13 - 2)
+    ws = np.stack(ws, axis=2)
+    # pass 2: columns, PASS1_BITS removed
+    out = _fdct_1d([ws[:, k, :] for k in range(8)], -2, 13 + 2)
+    return np.stack(out, axis=1).reshape(blocks.shape[:-2] + (64,))
+
+
+def quantize(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """``jcdctmgr.c::quantize``: each coefficient over ``quant << 3``,
+    rounded half away from zero. libjpeg-turbo multiplies by a reciprocal
+    with a corrected rounding term; its quotients are these (checked over
+    every divisor and every value the DCT can give in
+    ``tests/test_torch_jpeg_encode.py``)."""
+    d = quant.astype(np.int64) << 3
+    q = (np.abs(coef) + (d >> 1)) // d
+    return np.where(coef < 0, -q, q)
+
+
+def _edge_pad(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """``plane`` replicated at its bottom and right edges out to
+    (rows, cols) (``jcsample.c::expand_right_edge``,
+    ``jcprepct.c::expand_bottom_edge``)."""
+    h, w = plane.shape
+    return np.pad(plane, ((0, rows - h), (0, cols - w)), mode="edge")
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(8 * bh, 8 * bw) samples -> (bh, bw, 8, 8) blocks."""
+    rows, cols = plane.shape
+    return plane.reshape(rows // 8, 8, cols // 8, 8).transpose(0, 2, 1, 3)
+
+
+def encode_coefficients(rgb: np.ndarray, quality: int
+                        ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """The quantized coefficients libjpeg-turbo writes for
+    ``cv2.imencode(".jpg", cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR),
+    [cv2.IMWRITE_JPEG_QUALITY, quality])``: Y, Cb and Cr as (bh, bw, 64)
+    int64 arrays in natural order over their MCU-padded block grids (Y
+    sampled 2 x 2, Cb and Cr 1 x 1), and the (64,) luminance, chrominance,
+    chrominance tables. The Huffman stage is lossless, so these decide
+    every decoded sample.
+
+    libjpeg-turbo's stages, vectorised over every block:
+
+    * ``jccolor.c``'s fixed-point RGB -> YCbCr;
+    * ``jcprepct.c`` / ``jcsample.c``: at full resolution the last row
+      replicated to an even height and the last column to the chroma
+      blocks' width x 2; ``h2v2_downsample`` (the sum of 2 x 2 samples plus
+      a bias alternating 1, 2 along a row, >> 2); the last downsampled row
+      (Y: the last row) replicated to the component's block rows; Y's last
+      column out to its blocks' width;
+    * ``jpeg_fdct_islow`` and ``quantize``;
+    * ``jccoefct.c``'s dummy blocks in the MCUs past Y's last block column
+      or row: AC 0, the DC of the block before it in the MCU.
+    """
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError("encode_coefficients takes an (H, W, 3) uint8 RGB "
+                         f"image, got {rgb.dtype} {rgb.shape}")
+    height, width = rgb.shape[:2]
+    mcus_y, mcus_x = -(-height // 16), -(-width // 16)
+    hb, wb = -(-height // 8), -(-width // 8)     # Y's real block grid
+    r, g, b = (rgb[..., i] for i in range(3))
+    y, cb, cr = (((t[0][r] + t[1][g] + t[2][b]) >> 16) for t in _RGB_YCC)
+    luma, chroma = quant_tables(quality)
+
+    planes = [_edge_pad(y, 16 * mcus_y, 8 * wb)]
+    bias = np.tile([1, 2], 4 * mcus_x)
+    for c in (cb, cr):
+        full = _edge_pad(c, 2 * (-(-height // 2)), 16 * mcus_x)
+        down = (full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2]
+                + full[1::2, 1::2] + bias) >> 2
+        planes.append(_edge_pad(down, 8 * mcus_y, 8 * mcus_x))
+
+    coefs = [quantize(fdct_islow(_blocks(p)), t)
+             for p, t in zip(planes, (luma, chroma, chroma))]
+    y_coef = np.zeros((2 * mcus_y, 2 * mcus_x, 64), np.int64)
+    y_coef[:hb, :wb] = coefs[0][:hb]
+    if wb % 2:                                   # dummy column, real rows
+        y_coef[:hb, wb, 0] = y_coef[:hb, wb - 1, 0]
+    if hb % 2:                                   # dummy row of each MCU
+        y_coef[hb, :, 0] = np.repeat(y_coef[hb - 1, 1::2, 0], 2)
+    coefs[0] = y_coef
+    return coefs, [luma, chroma, chroma]
+
+
+def jpeg_roundtrip_u8(rgb: np.ndarray, quality: int) -> np.ndarray:
+    """``cv2.cvtColor(cv2.imdecode(cv2.imencode(".jpg", cv2.cvtColor(rgb,
+    cv2.COLOR_RGB2BGR), [cv2.IMWRITE_JPEG_QUALITY, quality])[1],
+    cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)``, byte for byte: an (H, W, 3)
+    uint8 RGB image through libjpeg-turbo's baseline 4:2:0 encoding at
+    ``quality`` and back. The coefficients of
+    :func:`encode_coefficients` go straight to the decoder's output stage
+    (:func:`samples_to_rgb`); the lossless Huffman stage is skipped."""
+    coefs, quants = encode_coefficients(rgb, quality)
+    return samples_to_rgb(coefs, quants, [(2, 2), (1, 1), (1, 1)],
+                          rgb.shape[0], rgb.shape[1])

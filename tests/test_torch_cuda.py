@@ -124,7 +124,8 @@ def _lrelu_input(dev, dtype, shape, g):
                                    (2, 5, 3, 3), (4, 13, 9, 17)])
 def test_fused_leaky_relu_backward_matches_plain(dev, dtype, shape):
     """K1b through autograd: dx equals the plain twin bit for bit, db is
-    the f32 sum of dx over the rows (rtol 1e-5: summation order)."""
+    the f32 sum of dx over the rows rounded to x's dtype, as the JAX
+    package rounds it (rtol 1e-5: summation order)."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = _lrelu_input(dev, dtype, shape, g).requires_grad_()
     bias = torch.randn(x.shape[1], device=dev, generator=g,
@@ -139,8 +140,27 @@ def test_fused_leaky_relu_backward_matches_plain(dev, dtype, shape):
     want_dx = fused_leaky_relu_bwd_plain(x.detach(), bias.detach(), cot)
     torch.testing.assert_close(x.grad, want_dx, rtol=0, atol=0)
     axes = (0,) if x.dim() == 2 else (0, 2, 3)
-    torch.testing.assert_close(bias.grad, want_dx.float().sum(dim=axes),
-                               rtol=1e-5, atol=1e-5)
+    want_db = want_dx.float().sum(dim=axes).to(dtype).to(bias.dtype)
+    torch.testing.assert_close(bias.grad, want_db, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_leaky_relu_backward_misaligned_view(dev, dtype):
+    """K1b with x one element past an aligned address (C = 64 would take
+    the 16-byte path; the pointer sends it to the one-element path), then
+    with g so: bit-exact."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn(2, 257 * 64 + 1, device=dev, generator=g).to(dtype)
+    x0, g0 = (buf[i, :-1].view(257, 64) for i in range(2))
+    x1, g1 = (buf[i, 1:].view(257, 64) for i in range(2))
+    bias = torch.randn(64, device=dev, generator=g)
+    for x, cot in ((x1, g0), (x0, g1)):
+        before = fused_leaky_relu_bwd.launches
+        got = fused_leaky_relu_bwd(x, bias, cot)
+        torch.cuda.synchronize()
+        assert fused_leaky_relu_bwd.launches == before + 1
+        torch.testing.assert_close(
+            got, fused_leaky_relu_bwd_plain(x, bias, cot), rtol=0, atol=0)
 
 
 def test_fused_leaky_relu_gradcheck(dev):
@@ -209,6 +229,24 @@ def test_sft_writeback_backward_matches_plain(dev, dtype, b, h, w, c, s,
         res.grad, sft_writeback_bwd_plain(cot, x1, length, valid, win),
         rtol=0, atol=0)
     torch.testing.assert_close(canvas.grad, cot, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sft_writeback_backward_misaligned_grad(dev, dtype):
+    """The backward kernel with g one element past an aligned address (C =
+    48 would take the 16-byte path): bit-exact to the plain version."""
+    _, _, x1, length, valid = _writeback_case(dev, dtype, 2, 3, 77, 48, 5,
+                                              13, 11)
+    buf = torch.randn(2 * 3 * 77 * 48 + 1, device=dev).to(dtype)
+    grad = buf[1:].view(2, 3, 77, 48)
+    assert grad.data_ptr() % 16 != 0
+    before = sft_writeback_bwd.launches
+    got = sft_writeback_bwd(grad, x1, length, valid, 13)
+    torch.cuda.synchronize()
+    assert sft_writeback_bwd.launches == before + 1
+    torch.testing.assert_close(
+        got, sft_writeback_bwd_plain(grad, x1, length, valid, 13), rtol=0,
+        atol=0)
 
 
 def test_sft_writeback_gradcheck(dev):

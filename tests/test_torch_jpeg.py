@@ -219,7 +219,7 @@ def write_fixtures(d: str = FIXTURES) -> None:
     Image.fromarray(_line(37, 101, 4)).save(
         os.path.join(d, "exif_orientation6.jpg"), "JPEG", quality=90,
         exif=exif.tobytes())
-    for name in os.listdir(d):
+    for name in list(specs) + ["exif_orientation6.jpg"]:
         if name.endswith(".jpg"):
             path = os.path.join(d, name)
             cv2.imwrite(path[:-4] + ".png", cv2.imread(path),
@@ -240,9 +240,12 @@ def test_fixture_is_cv2s_decode(name):
 
 
 def test_fixtures_are_small():
-    total = sum(os.path.getsize(os.path.join(FIXTURES, n))
-                for n in os.listdir(FIXTURES))
-    assert len(os.listdir(FIXTURES)) == 2 * len(FIXTURE_NAMES)
+    """The decoder's fixtures (the files beside ``roundtrip/``, whose
+    encoder fixtures ``test_torch_jpeg_encode.py`` holds)."""
+    names = [n for n in os.listdir(FIXTURES)
+             if os.path.isfile(os.path.join(FIXTURES, n))]
+    total = sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in names)
+    assert len(names) == 2 * len(FIXTURE_NAMES)
     assert total <= 150_000, total
 
 

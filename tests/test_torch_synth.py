@@ -8,10 +8,11 @@ colour jitter, the degradation choice, the LQ resize and padding -- and
 ``prepare_train_batch``) run the same draws. Backgrounds: flat, a
 directory of PNG patches, and one mixing a PNG, a JPEG, a BMP and an
 unreadable file (cv2 reads them in the JAX package, ``utils/imread.py``
-here). The JAX side's JPEGs are pinned as in
-``test_torch_degrade.py`` (Real-ESRGAN to ``jpeg_np``; BSRGAN's
-``_add_jpeg`` to the port's). Outputs equal within 1e-4, or within one
-uint8 level at no more than 0.1% of the values; generator states equal.
+here). The JAX side's Real-ESRGAN JPEG is pinned to ``jpeg_np`` as in
+``test_torch_degrade.py``; BSRGAN's ``_add_jpeg`` runs libjpeg through cv2
+on the JAX side and the port's libjpeg-exact round trip here, unpatched.
+Outputs equal within 1e-4, or within one uint8 level at no more than 0.1%
+of the values; generator states equal.
 """
 
 import cv2
@@ -19,11 +20,9 @@ import numpy as np
 import pytest
 
 from marconet_tpu.data import synth as jsynth
-from marconet_tpu.data.degrade import bsrgan as jbsrgan
 from marconet_tpu.data.degrade import diffjpeg as jdiffjpeg
 from marconet_tpu.data.degrade import realesrgan as jrealesrgan
 from marconet_tpu_torch.data import synth as tsynth
-from marconet_tpu_torch.data.degrade import bsrgan as tbsrgan
 from tests.torch_synth_support import StrokeSynthesizer, stroke_render
 
 TOL = 1e-4
@@ -32,12 +31,11 @@ LEVEL_SHARE = 1e-3
 
 @pytest.fixture
 def pinned(monkeypatch):
-    """cv2 without IPP, the JAX side's JPEGs pinned, the renderer on the
-    JAX class."""
+    """cv2 without IPP, the JAX side's Real-ESRGAN JPEG pinned, the
+    renderer on the JAX class."""
     was = cv2.ipp.useIPP()
     cv2.ipp.setUseIPP(False)
     monkeypatch.setattr(jrealesrgan, "jpeg_np", jdiffjpeg.jpeg_np)
-    monkeypatch.setattr(jbsrgan, "_add_jpeg", tbsrgan._add_jpeg)
     monkeypatch.setattr(jsynth.TextLineSynthesizer, "render", stroke_render)
     try:
         yield
