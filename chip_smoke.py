@@ -81,21 +81,23 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    parameters, as the JAX tool computes).
 13. training driver: ``load_config("options/train.yml")`` (full width, 16
    slots, batch 2) and ``train.loop.train`` with its spawned workers
-   synthesizing through the real degradations, batching and
-   ``prepare_train_batch`` (glyphs from the seeded stroke renderer of
-   ``SmokeSynthesizer``: no font pack or PIL-free TrueType renderer is in
-   the repository): 6 steps, then a resume from the newest checkpoint
-   (step 4) to step 8 with three steps profiled. Checks the exact kernel
-   launches of every step and every val pass, the event file (framing,
-   CRCs, loss / speed scalars, ``val/*`` grids and text), that
+   synthesizing through the port's TrueType renderer (``font_dir`` the
+   fixture font ``tests/data/fonts/``, DejaVu Sans), the real
+   degradations, batching and ``prepare_train_batch``: 6 steps, then a
+   resume from the newest checkpoint (step 4) to step 8 with three steps
+   profiled. Checks the exact kernel launches of every step and every
+   val pass, the event file (framing, CRCs, loss / speed scalars,
+   ``val/*`` grids, the ``val/1_pred_text`` panel a 32 x 512 green-on-
+   black PNG), that
    ``step_4.pt`` restores into a fresh trainer with equal tensors, and
    that the resumed step, learning rates and Adam counts continue;
    prints the loop's samples/s beside phase 10's, the queue wait a step,
    the device's idle share over the profiled steps, one worker's host ms
-   a batch by stage (``degradation`` includes the libjpeg-exact JPEG step
-   of BSRGAN) and ``os.cpu_count()``.
+   a batch by stage (``render`` is the TrueType render, ``degradation``
+   includes the libjpeg-exact JPEG step of BSRGAN) and ``os.cpu_count()``.
 14. data-parallel training: (a) ``train.loop.train`` from
-   ``options/train.yml`` at full width for 4 steps under a one-rank NCCL
+   ``options/train.yml`` at full width (glyphs in the fixture font, as
+   phase 13) for 4 steps under a one-rank NCCL
    process group started by ``parallel.distributed.maybe_initialize``:
    exact launches per step, CUDA events around every
    ``all_reduce_grads`` (the gradient buckets of the G, D and SRD phases),
@@ -131,8 +133,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    parses and holds exactly 3 x 19 K1 and 3 x 2 K2 kernels by their CUDA
    names, with the device-busy share and the five kernels with the most
    time; ``crop_bg_patches`` on a seeded 1200 x 900 PNG and the 400 x 400
-   JPEG (8 patches); then one f32 training step's peak memory at batches
-   2 and 4, a linear fit, and one timed step at the largest batch the fit
+   JPEG (8 patches); ``syndata_demo`` (4 samples in the fixture font: 16
+   PNGs at their shapes, a text each) and the host ms of one TrueType
+   render a line over 40 seeds; then one f32 training step's peak memory
+   at batches 2 and 4, a linear fit, and one timed step at the largest batch the fit
    puts under the card's memory (no out-of-memory error is caught). Exact
    K1 / K2 (and in training K1b / K2 bwd) launches in every run.
 16. mixed-precision training: ``MARCONetTrainer(dtype=torch.bfloat16)``
@@ -159,8 +163,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import functools
 import hashlib
+import io
 import json
 import math
 import multiprocessing as mp
@@ -186,15 +190,17 @@ from marconet_tpu_torch.cli import crop_bg_patches as cli_crop_bg_patches
 from marconet_tpu_torch.cli import parity_report as cli_parity_report
 from marconet_tpu_torch.cli import profile_sr as cli_profile_sr
 from marconet_tpu_torch.cli import serve_demo as cli_serve_demo
+from marconet_tpu_torch.cli import syndata_demo as cli_syndata_demo
 from marconet_tpu_torch.cli import test_sr as cli_test_sr
 from marconet_tpu_torch.cli import test_w as cli_test_w
 from marconet_tpu_torch.data import synth as synth_module
 from marconet_tpu_torch.data.batch_prep import prepare_train_batch
 from marconet_tpu_torch.dryrun import seeded_batch
 from marconet_tpu_torch.data.synth import (
-    CHECK_NUM,
     GT_H,
     GT_W,
+    LQ_H,
+    LQ_W,
     SynthConfig,
     TextLineSynthesizer,
 )
@@ -248,7 +254,8 @@ from marconet_tpu_torch.utils.jpeg import (
     jpeg_roundtrip_u8,
     read_jpeg,
 )
-from marconet_tpu_torch.utils.png import read_png, write_png
+from marconet_tpu_torch.utils import raster, truetype
+from marconet_tpu_torch.utils.png import decode_png, read_png, write_png
 
 SERVE_BATCH = 16    # bench.py's workload: 16 lines of 8 characters
 SERVE_SLOTS = 8
@@ -2039,54 +2046,11 @@ LOOP_TAGS = ("losses/l_g_total", "speed/samples_per_sec",
              "speed/data_wait_ms", "val/1_gt_sr_lq", "val/3_char_prior",
              "val/1_pred_text")
 HOST_BATCHES = 3          # batches synthesized in this process, timed
+# the fixture font (DejaVu Sans): the synthesizer draws its lines with it
+FONT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "data", "fonts")
+PRED_TEXT_SHAPE = (32, 512, 3)  # the val/1_pred_text panel
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-class SmokeSynthesizer(TextLineSynthesizer):
-    """The port's synthesizer with seeded strokes for glyphs: the font
-    pack and a TrueType renderer without PIL are not in the repository.
-    ``render`` keeps the JAX package's contract (image, ink mask, text,
-    labels, per-character pixel columns), so the rest of ``sample`` --
-    the degradations, the LQ resize and padding, ``batch`` and
-    ``prepare_train_batch`` -- runs as in training. Module-level, so the
-    loop's spawned workers can unpickle it."""
-
-    def render(self, rng, bg_rgb, forced_text=None):
-        if forced_text is not None:
-            text = forced_text
-            labels = [alphabet().find(c) for c in text]
-        else:
-            text, labels = self.sample_text(rng)
-            tries = 0
-            while (not text or len(text) > CHECK_NUM) and tries < 10:
-                text, labels = self.sample_text(rng)
-                tries += 1
-        if not text:
-            return None
-        img = np.array(bg_rgb, np.float32, copy=True)
-        ink = np.zeros((GT_H, GT_W), np.float32)
-        x = int(rng.integers(0, 24))
-        char_locs = []
-        for _ in text:
-            w = int(rng.integers(40, 120))
-            if x + w > GT_W:
-                return None
-            top, bottom = int(rng.integers(8, 40)), int(rng.integers(88, 120))
-            for _ in range(int(rng.integers(2, 6))):
-                if rng.random() < 0.5:
-                    c0 = x + int(rng.integers(0, w - 8))
-                    ink[top:bottom, c0:c0 + int(rng.integers(4, 10))] = 1.0
-                else:
-                    r0 = int(rng.integers(top, bottom - 6))
-                    ink[r0:r0 + int(rng.integers(3, 8)), x:x + w] = 1.0
-            char_locs += [x, x + w - 1]
-            x += w + int(rng.integers(4, 24))
-        max_width = max(char_locs)
-        char_locs += [GT_W, GT_W] * (CHECK_NUM - len(text))
-        img[ink > 0] = rng.uniform(0.0, 1.0, 3).astype(np.float32)
-        mask = np.repeat(ink[:, :, None], 3, axis=2)
-        offset_w = min(max_width + int(rng.integers(0, 17)), GT_W) // 4 * 4
-        return img[:, :offset_w], mask[:, :offset_w], text, labels, char_locs
 
 
 @contextlib.contextmanager
@@ -2117,8 +2081,9 @@ def _launches_per_call(log: list):
 def _host_batch_ms() -> dict:
     """One worker's host milliseconds a batch, in this process: the
     degradations, the LQ resize and padding, ``prepare_train_batch``, the
-    stroke renderer and the rest (background, jitter, stacking)."""
-    synth = SmokeSynthesizer(SynthConfig())
+    TrueType render (DejaVu Sans) and the rest (background, jitter,
+    stacking)."""
+    synth = TextLineSynthesizer(SynthConfig(font_dir=FONT_DIR))
     spent = dict.fromkeys(("degradation", "resize/pad",
                            "prepare_train_batch", "render"), 0.0)
 
@@ -2196,13 +2161,29 @@ def _check_loop_events(tb_dir: str, steps, val_steps) -> list:
                              f"; expected {list(steps)}, {list(val_steps)}")
     for e in evs:
         for tag, kind, payload in e["values"]:
-            if kind == "image":
+            if tag == "val/1_pred_text":
+                _check_pred_text(kind, payload)
+            elif kind == "image":
                 png, h, w = payload
                 if not png.startswith(b"\x89PNG") or h < 128 or w < 128:
                     raise AssertionError(f"{tag}: {h} x {w} image")
             if kind == "scalar" and not math.isfinite(payload):
                 raise AssertionError(f"{tag} = {payload}")
     return evs
+
+
+def _check_pred_text(kind: str, payload) -> None:
+    """``val/1_pred_text`` is the predicted text drawn in the font of
+    ``font_dir``: a 32 x 512 PNG, green on black."""
+    if kind != "image":
+        raise AssertionError(f"val/1_pred_text is a {kind} entry, not an "
+                             "image")
+    png, h, w = payload
+    img = decode_png(png, "val/1_pred_text")
+    if (h, w) + (3,) != PRED_TEXT_SHAPE or img.shape != PRED_TEXT_SHAPE \
+            or img[..., [0, 2]].any():
+        raise AssertionError(f"val/1_pred_text: {img.shape} image, red or "
+                             "blue ink")
 
 
 def _check_restore(ckpt_dir: str, step: int, config) -> None:
@@ -2237,8 +2218,8 @@ def _check_restore(ckpt_dir: str, step: int, config) -> None:
 def phase_loop(smi: str, bare_samples_per_s: float) -> dict:
     """The training driver at ``options/train.yml``'s full width (batch 2,
     16 slots) through the entry points a user calls: ``load_config``,
-    ``train(max_steps=6)`` with the smoke's renderer in the config's
-    spawned workers, then a resume from the newest checkpoint to step 8
+    ``train(max_steps=6)`` with the config's spawned workers drawing in
+    the fixture font, then a resume from the newest checkpoint to step 8
     with three steps profiled. Exact launches per step and per val pass,
     the event file, checkpoint restore and the resumed step and rates;
     prints the loop's samples/s beside phase 10's bare steps, one
@@ -2260,7 +2241,7 @@ def _run_loop(smi: str, bare_samples_per_s: float, config, work: str
     loop.print_freq, loop.val_freq, loop.save_freq = \
         LOOP_PRINT, LOOP_VAL, LOOP_SAVE
     loop.allow_random_lpips = True
-    factory = functools.partial(SmokeSynthesizer, SynthConfig())
+    loop.font_dir = FONT_DIR
     run_dir = os.path.join(work, loop.name)
     tb_dir, ckpt_dir = (os.path.join(run_dir, "tb"),
                         os.path.join(run_dir, "checkpoints"))
@@ -2273,8 +2254,7 @@ def _run_loop(smi: str, bare_samples_per_s: float, config, work: str
     try:
         with _launches_per_call(calls):
             t0 = time.perf_counter()
-            trainer = train(config, max_steps=LOOP_STEPS,
-                            synth_factory=factory)
+            trainer = train(config, max_steps=LOOP_STEPS)
             first_s = time.perf_counter() - t0
             if trainer.step != LOOP_STEPS:
                 raise AssertionError(f"step {trainer.step}")
@@ -2292,7 +2272,6 @@ def _run_loop(smi: str, bare_samples_per_s: float, config, work: str
             os.environ["MARCONET_PROFILE"] = profile_dir
             t0 = time.perf_counter()
             trainer = train(config, max_steps=LOOP_RESUME_STEPS,
-                            synth_factory=factory,
                             profile_steps=LOOP_PROFILE)
             resume_s = time.perf_counter() - t0
         launches = _counts()
@@ -2426,7 +2405,7 @@ def _dp_one_rank_loop(smi: str, bare_samples_per_s: float) -> dict:
                              f"{t.max_chars}, batch {loop.batch_size}")
     loop.print_freq, loop.val_freq, loop.save_freq = 1, 0, 10 ** 9
     loop.allow_random_lpips = True
-    factory = functools.partial(SmokeSynthesizer, SynthConfig())
+    loop.font_dir = FONT_DIR
     spans: list = []
     reduce_grads = distributed.all_reduce_grads
 
@@ -2451,8 +2430,7 @@ def _dp_one_rank_loop(smi: str, bare_samples_per_s: float) -> dict:
             backend = torch.distributed.get_backend()
             with _launches_per_call(calls):
                 t0 = time.perf_counter()
-                trainer = train(config, max_steps=DP_STEPS,
-                                synth_factory=factory)
+                trainer = train(config, max_steps=DP_STEPS)
                 seconds = time.perf_counter() - t0
             launches = _counts()
         finally:
@@ -2629,6 +2607,8 @@ JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 JPEG_ROUNDTRIP = os.path.join(JPEG_FIXTURES, "roundtrip")
 JPEG_TIMED = ("line_512x32_420", "line_1400x72_progressive", "bg_400x400")
 JPEG_REPEATS = 5
+SYNDATA_SAMPLES = 4
+RENDER_SEEDS = 40          # the render's host time, as on the CPU suite
 GIF_DELAY_CS = 10
 PROFILE_ITERS = 3
 CROP_IMAGE = (900, 1200)            # (H, W) of the seeded PNG to mine
@@ -2975,6 +2955,53 @@ def _io_crop(work: str) -> None:
         f"{seconds:.2f} s (host)")
 
 
+def _io_syndata(smi: str, work: str) -> None:
+    """``syndata_demo`` (4 samples in the fixture font, flat backgrounds):
+    16 PNGs at their shapes and a text per sample; then the host ms of
+    one render over ``RENDER_SEEDS`` seeds (one flat background, a fresh
+    synthesizer, so the font is parsed and the glyphs rasterized inside
+    the timed renders), the timing of ``tests/torch_render_report.py``."""
+    out = os.path.join(work, "syndata")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli_syndata_demo.main(["-o", out, "-n", str(SYNDATA_SAMPLES),
+                               "--font_dir", FONT_DIR,
+                               "--bg_dir", os.path.join(work, "no_bg")])
+    seconds = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    texts = [ln for ln in lines if ln.startswith("sample ")]
+    if len(texts) != SYNDATA_SAMPLES or any(ln.endswith("text=''")
+                                            for ln in texts):
+        raise AssertionError(f"syndata_demo printed {lines}")
+    shapes = {"gt": (GT_H, GT_W, 3), "mask": (GT_H, GT_W, 3),
+              "lq": (LQ_H, LQ_W, 3), "locs": (GT_H, GT_W, 3)}
+    paths, want = [], []
+    for i in range(SYNDATA_SAMPLES):
+        for name, shape in shapes.items():
+            paths.append(os.path.join(out, f"{i:03d}_{name}.png"))
+            want.append(shape)
+    _check_pngs(paths, want, "syndata_demo")
+    if sorted(os.listdir(out)) != sorted(os.path.basename(p) for p in paths):
+        raise AssertionError(f"syndata_demo wrote {sorted(os.listdir(out))}")
+    say(f"[io] syndata_demo: {SYNDATA_SAMPLES} samples, {len(paths)} PNGs "
+        f"in {seconds:.2f} s (host); " + "; ".join(texts))
+
+    raster.glyph_bitmap.cache_clear()
+    truetype.load_face.cache_clear()
+    synth = TextLineSynthesizer(SynthConfig(font_dir=FONT_DIR))
+    bg = synth.background(np.random.default_rng(0))
+    drawn, t0 = 0, time.perf_counter()
+    for seed in range(RENDER_SEEDS):
+        drawn += synth.render(np.random.default_rng(seed), bg) is not None
+    ms = (time.perf_counter() - t0) * 1e3 / RENDER_SEEDS
+    if drawn < RENDER_SEEDS // 2:
+        raise AssertionError(f"{drawn} of {RENDER_SEEDS} renders drawn")
+    say(f"[io] render (TrueType, DejaVu Sans): {ms:.2f} host ms a line over "
+        f"{RENDER_SEEDS} seeds ({drawn} drawn, cold caches), "
+        f"os.cpu_count() {os.cpu_count()}; on {smi}")
+
+
 def _io_largest_batch(smi: str, add) -> None:
     """One f32 training step at the largest batch whose peak memory, fitted
     linearly to steps at batches 2 and 4, fits the card."""
@@ -3043,6 +3070,7 @@ def phase_io_tools(smi: str, ckpt_dir: str, work: str) -> dict:
     _io_parity(work, add)
     _io_profile(smi, work, add)
     _io_crop(work)
+    _io_syndata(smi, work)
     _io_largest_batch(smi, add)
     return launches
 
@@ -3267,7 +3295,7 @@ def main() -> None:
         dp = phase_dp(smi, bare_rate)
         say(f"[smoke] phase 14 in {time.perf_counter() - t14:.1f} s")
         t15 = time.perf_counter()
-        io = phase_io_tools(smi, ckpt_dir, work)
+        tools = phase_io_tools(smi, ckpt_dir, work)
         say(f"[smoke] phase 15 in {time.perf_counter() - t15:.1f} s")
     t16 = time.perf_counter()
     train16 = phase_train_bf16(smi, bare_rate)
@@ -3275,7 +3303,7 @@ def main() -> None:
     kernels = [dict(name=name, **KERNELS[name],
                     launches=k3[name] + serve[name] + page[name]
                     + train_launches[name] + cli[name] + loop[name]
-                    + dp[name] + io[name] + train16[name],
+                    + dp[name] + tools[name] + train16[name],
                     **report[name])
                for name in KERNELS]
     say(f"[smoke] phases 1-16 in {time.perf_counter() - t0:.1f} s")

@@ -1,7 +1,8 @@
 """Command-line tools of the port (counterparts of the JAX package's
 ``tools/test_sr.py``, ``tools/test_w.py``, ``tools/serve_demo.py``,
 ``tools/train.py``, ``tools/eval_metrics.py``, ``tools/parity_report.py``,
-``tools/crop_bg_patches.py`` and ``tools/profile_sr.py``).
+``tools/crop_bg_patches.py``, ``tools/profile_sr.py`` and
+``tools/syndata_demo.py``).
 
 Each runs as ``python -m marconet_tpu_torch.cli.<name>``, keeps the JAX
 tool's flags and defaults and adds ``--device`` (default ``cuda``) where

@@ -17,9 +17,10 @@ host:port``, ``MARCONET_NUM_PROCS=N`` and ``MARCONET_PROC_ID=<rank>``
 (plus ``LOCAL_RANK`` when ranks share a host with other ranks' devices).
 The backend is NCCL on CUDA devices and gloo on the CPU.
 
-The default synthesizer needs a glyph renderer and the font pack, which
-the repository does not have (``data/synth.py``): until then training
-stops at the first batch with that message.
+The default synthesizer draws its lines in the fonts of
+``datasets.train.path_font`` (every file there is a font), or in DejaVu
+Sans where that directory holds none, as the JAX package does; the
+repository carries DejaVu Sans as ``tests/data/fonts/DejaVuSans.ttf``.
 """
 
 from __future__ import annotations

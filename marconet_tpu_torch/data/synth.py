@@ -1,10 +1,11 @@
 """Synthetic text-line rendering + degradation dataset (host-side).
 
 Counterpart of ``marconet_tpu/data/synth.py`` with the same random draws
-in the same order, everything but the glyph rendering: ``render`` draws
-text with PIL and a TrueType font in the JAX package, and the card's
-machine has no PIL and the repository no font pack, so here it raises
-(subclasses provide a renderer). Backgrounds are read as cv2 reads them
+in the same order. Glyphs are drawn as the JAX package's PIL draws them,
+by the port's own TrueType renderer (``utils/truetype.py``,
+``utils/raster.py``, ``utils/text_draw.py``): the same layout and glyph
+placement, outlines unhinted where PIL hints them (``ROADMAP.md`` §3
+records the gap). Backgrounds are read as cv2 reads them
 (``utils/imread.py``), with the flat fallback wherever cv2 gives None;
 the resizes are ``utils/image.resize``.
 
@@ -14,8 +15,8 @@ a clean host pipeline:
 
 * text sampling: 50% corpus lines (3 sub-corpora at 0.3/0.3/0.4), 30%
   random alphabet characters, 20% latin/digit strings (``:292-350``);
-* PIL rendering with random font/size(90-140)/offset/color, white-bg swap
-  p=0.08, black text p=0.1 (``:157-243``);
+* TrueType rendering with random font/size(90-140)/offset/color, solid
+  background p=0.08, black text p=0.1 (``:157-243``);
 * per-character x-extents recovered by incremental re-rendering +
   vertical projection (``:181-204``);
 * background: thin random slivers of DF2K patches stretched to 128x2048
@@ -54,10 +55,26 @@ from marconet_tpu_torch.utils.image import (
     resize,
 )
 from marconet_tpu_torch.utils.imread import imread
+from marconet_tpu_torch.utils.text_draw import blend, draw_text, truetype
 
 CHECK_NUM = 16
 GT_H, GT_W = 128, 128 * CHECK_NUM
 LQ_H, LQ_W = 32, 32 * CHECK_NUM
+# the JAX package's font when ``font_dir`` holds none
+FALLBACK_FONTS = ("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",)
+
+
+class NoFont(FileNotFoundError):
+    """Neither ``font_dir`` nor the fallback font gives a font to draw
+    with."""
+
+
+def font_files(font_dir: str) -> List[str]:
+    """Every file of ``font_dir``, sorted (each is taken as a font, as in
+    the JAX package); none where it is unset or no directory."""
+    if not (font_dir and os.path.isdir(font_dir)):
+        return []
+    return [os.path.join(font_dir, f) for f in sorted(os.listdir(font_dir))]
 
 
 @dataclass
@@ -97,10 +114,8 @@ def _color_jitter(rng, img):
 
 
 class TextLineSynthesizer:
-    """Text lines with their degraded LQ twins, everything but the glyph
-    rendering: :meth:`render` raises, and a subclass supplies it (the
-    JAX package draws text with PIL and a TrueType font of the font pack;
-    the card's machine has no PIL and the repository no font pack)."""
+    """Text lines drawn in a TrueType font of ``font_dir`` with their
+    degraded LQ twins."""
 
     def __init__(self, config: SynthConfig):
         self.cfg = config
@@ -119,6 +134,12 @@ class TextLineSynthesizer:
         while self.corpora and len(self.corpora) < 3:
             self.corpora.append(self.corpora[0])
 
+        self.font_paths = font_files(config.font_dir)
+        if not self.font_paths:
+            # fallback for environments without the released font pack
+            for cand in FALLBACK_FONTS:
+                if os.path.exists(cand):
+                    self.font_paths = [cand]
         self.bg_paths = []
         if config.bg_dir and os.path.isdir(config.bg_dir):
             self.bg_paths = [os.path.join(config.bg_dir, f)
@@ -168,15 +189,85 @@ class TextLineSynthesizer:
         Returns (img [0,1] (128, W, 3), ink mask {0,1} (128, W, 3), text,
         labels, char_locs: 2 * CHECK_NUM pixel columns, (left, right) per
         character, ``GT_W`` for unused slots) or None when the render is
-        unusable (the caller retries). Not available here: it needs a
-        TrueType renderer without PIL and the font pack, neither of which
-        the repository has. Subclasses override it.
+        unusable (the caller retries). The per-character columns come, as
+        in the reference, from drawing every prefix of the text onto one
+        ``L`` mask, one draw over the other, and projecting it onto the
+        columns after each draw.
         """
-        raise NotImplementedError(
-            "TextLineSynthesizer.render needs glyph rendering: a TrueType "
-            "renderer without PIL and the font pack (path_font, "
-            f"{self.cfg.font_dir or 'unset'}), which the repository does "
-            "not have; pass a synthesizer whose render is implemented")
+        if forced_text is not None:
+            text = forced_text
+            labels = [alphabet().find(c) for c in text]
+        else:
+            text, labels = self.sample_text(rng)
+            tries = 0
+            while (not text or len(text) > CHECK_NUM) and tries < 10:
+                text, labels = self.sample_text(rng)
+                tries += 1
+        if not text:
+            return None
+        if not self.font_paths:
+            raise NoFont(
+                f"no font to draw with: font_dir {self.cfg.font_dir!r} holds "
+                f"no file and {' or '.join(FALLBACK_FONTS)} does not exist")
+
+        w, h = GT_W, GT_H
+        img = (bg_rgb * 255).astype(np.uint8)
+        if rng.random() > 0.92:
+            img = np.full((h, w, 3), [int(rng.integers(0, 256))
+                                      for _ in range(3)], np.uint8)
+        font_path = self.font_paths[int(rng.integers(
+            0, len(self.font_paths)))]
+        font = truetype(font_path, int(rng.integers(90, 141)))
+        pos = (int(rng.integers(-10, 21)), int(rng.integers(-20, 11)))
+
+        # incremental render -> per-char [x_l, x_r] via vertical projection
+        pos_mask = np.zeros((h, w), np.uint8)
+        proj = np.zeros(w, np.int64)
+        char_locs: List[int] = []
+        for i in range(1, len(text) + 1):
+            if text[i - 1] == " ":
+                continue
+            mask, (dx, dy) = font.getmask(text[:i])
+            if mask.size:
+                x0 = max(pos[0] + dx, 0)
+                x1 = min(pos[0] + dx + mask.shape[1], w)
+                blend(pos_mask, mask, (pos[0] + dx, pos[1] + dy), 255)
+                if x0 < x1:
+                    proj[x0:x1] = pos_mask[:, x0:x1].sum(axis=0)
+            cols = np.nonzero(proj > 1)[0]
+            if cols.size == 0:
+                continue
+            if not char_locs:
+                char_locs += [max(int(cols.min()), 0),
+                              min(int(cols.max()), w - 1)]
+            else:
+                new = cols[cols > char_locs[-1] + 2]
+                if new.size:
+                    char_locs += [max(int(new.min()), 0),
+                                  min(int(new.max()), w - 1)]
+
+        if not char_locs:
+            return None
+        max_width = max(char_locs)
+        if (len(text) != len(char_locs) // 2 or
+                len(labels) != len(char_locs) // 2 or max_width > GT_W):
+            return None
+        char_locs += [GT_W, GT_W] * (CHECK_NUM - len(text))
+
+        color = ((0, 0, 0) if rng.random() > 0.9 else
+                 tuple(int(rng.integers(0, 256)) for _ in range(3)))
+        draw_text(img, pos, text, font, color)
+
+        mask = (pos_mask > 128).astype(np.float32)
+        mask = np.repeat(mask[:, :, None], 3, axis=2)
+        rgb = img.astype(np.float32) / 255.0
+
+        offset_w = min(max_width + int(rng.integers(0, 17)), GT_W)
+        offset_w = offset_w // 4 * 4
+        if offset_w < 10:
+            return None
+        return (rgb[:, :offset_w], mask[:, :offset_w], text, labels,
+                char_locs)
 
     # -- background --------------------------------------------------------
 

@@ -43,7 +43,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from marconet_tpu_torch.convert import load_reference_pth
-from marconet_tpu_torch.data.synth import SynthConfig, TextLineSynthesizer
+from marconet_tpu_torch.data.synth import (
+    SynthConfig,
+    TextLineSynthesizer,
+    font_files,
+)
 from marconet_tpu_torch.models.pipeline import resolve_device
 from marconet_tpu_torch.parallel import distributed
 from marconet_tpu_torch.train import checkpoint as ckpt
@@ -72,8 +76,7 @@ PROFILE_STEPS = (10, 16)
 
 def default_synthesizer(cfg: LoopConfig) -> TextLineSynthesizer:
     """The config's dataset: fonts, backgrounds and corpora of
-    ``datasets.train`` (its ``render`` needs a glyph renderer, which the
-    repository lacks; see ``data/synth.py``)."""
+    ``datasets.train``."""
     return TextLineSynthesizer(SynthConfig(
         font_dir=cfg.font_dir, bg_dir=cfg.bg_dir,
         corpus_paths=cfg.corpus_paths))
@@ -178,18 +181,23 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _log_visuals(writer: EventWriter, trainer: MARCONetTrainer,
-                 batch: TrainBatch, step: int) -> None:
-    """The ``val/*`` grids and predicted text (reference
-    ``tspgan_model.py:615-621``)."""
+                 batch: TrainBatch, step: int, font_dir: str) -> None:
+    """The ``val/*`` grids and the predicted text (reference
+    ``tspgan_model.py:615-621``): the text as the image
+    ``val/1_pred_text`` in the first font of ``font_dir``, or without a
+    font as a text entry of that name (``train/visuals.py``)."""
     vis = trainer.visual_forward(batch)
+    fonts = font_files(font_dir)           # the JAX loop takes the first
     grids, text = build_visual_grids(
         gt=_host(batch.gt), lq=_host(batch.lq), sr=_host(vis["sr"]),
         prior128=_host(vis["prior128"]), gt_chars=_host(batch.gt_chars),
         pred_cw=_host(vis["pred_cw"]), boxinfo_lr=_host(batch.boxinfo_lr),
-        pred_ids=_host(vis["pred_ids"]))
+        pred_ids=_host(vis["pred_ids"]),
+        font_path=fonts[0] if fonts else None)
     for label, img in grids.items():
         writer.add_image(f"val/{label}", img, step)
-    writer.add_text("val/1_pred_text", text, step)
+    if "1_pred_text" not in grids:
+        writer.add_text("val/1_pred_text", text, step)
 
 
 def _start_profile(device: torch.device) -> profile:
@@ -324,7 +332,8 @@ def _train(config: FullConfig, max_steps: Optional[int], device,
             if writer is not None and loop.val_freq > 0 \
                     and done % loop.val_freq == 0:
                 with record_function("train/val"):
-                    _log_visuals(writer, trainer, batch, done)
+                    _log_visuals(writer, trainer, batch, done,
+                                 loop.font_dir)
             if done % loop.save_freq == 0:
                 with record_function("train/save"):
                     path = ckpt.save_state(ckpt_dir, trainer)

@@ -9,10 +9,13 @@ predicted text. The device forward is ``MARCONetTrainer.visual_forward``;
 grid assembly is host-side numpy, the JAX package's ``cv2.resize`` being
 ``utils/image.resize``.
 
-**Deviation:** the JAX package renders the predicted text as an image
-with PIL (``render_text_row``); the card's machine has no PIL, so here the
-text itself is returned and the loop logs it as the text entry
-``val/1_pred_text``.
+The predicted text is drawn as the JAX package draws it
+(``render_text_row``), with the port's TrueType renderer
+(``utils/text_draw.py``). **Deviation:** without a font (no ``font_dir``)
+the JAX package draws it in Pillow's built-in bitmap font
+(``ImageFont.load_default``), which the port does not have; there the
+grids leave the panel out and the loop logs the text itself as the text
+entry ``val/1_pred_text``.
 
 All panel builders take float arrays in [-1, 1] (NHWC) and return HWC
 uint8 grids ready for ``EventWriter.add_image``.
@@ -20,12 +23,13 @@ uint8 grids ready for ``EventWriter.add_image``.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from marconet_tpu_torch.alphabet import alphabet
 from marconet_tpu_torch.utils.image import INTER_LINEAR, resize
+from marconet_tpu_torch.utils.text_draw import draw_text, truetype
 
 
 def _to_uint8(img: np.ndarray) -> np.ndarray:
@@ -49,6 +53,15 @@ def ctc_collapse_ids(ids: np.ndarray) -> str:
             out.append(chars[i])
         prev = i
     return "".join(out)
+
+
+def render_text_row(text: str, font_path: str, width: int = 512,
+                    height: int = 32) -> np.ndarray:
+    """Render predicted text green-on-black at 32 px (reference
+    ``:266-275``, the JAX package's ``render_text_row`` with a font)."""
+    img = np.zeros((height, width, 3), np.uint8)
+    draw_text(img, (10, 0), text, truetype(font_path, 32), (0, 255, 0))
+    return img
 
 
 def draw_locs_overlay(img: np.ndarray, locs_cw_px: np.ndarray,
@@ -82,7 +95,8 @@ def hstack_chars(chars: np.ndarray, max_chars: int = 16) -> np.ndarray:
 def build_visual_grids(gt: np.ndarray, lq: np.ndarray, sr: np.ndarray,
                        prior128: np.ndarray, gt_chars: np.ndarray,
                        pred_cw: np.ndarray, boxinfo_lr: np.ndarray,
-                       pred_ids: np.ndarray, show_num: int = 2
+                       pred_ids: np.ndarray,
+                       font_path: Optional[str] = None, show_num: int = 2
                        ) -> Tuple[Dict[str, np.ndarray], str]:
     """Assemble the reference's TB panels for the first ``show_num`` samples.
 
@@ -93,8 +107,8 @@ def build_visual_grids(gt: np.ndarray, lq: np.ndarray, sr: np.ndarray,
       boxinfo_lr: (B, 32) normalized (left, right);
       pred_ids: (B, T) encoder argmax ids.
     Returns ({label: HWC uint8 grid}, the first sample's predicted text),
-    labels mirroring the reference's (the text is the JAX package's
-    ``1_pred_text`` panel).
+    labels mirroring the reference's; with ``font_path`` the text is also
+    drawn as the ``1_pred_text`` panel.
     """
     b = min(show_num, gt.shape[0])
     big_w = gt.shape[2]
@@ -116,6 +130,11 @@ def build_visual_grids(gt: np.ndarray, lq: np.ndarray, sr: np.ndarray,
             right_color=(0, 255, 0), pad=1))
     grids["1_gt_sr_lq"] = np.concatenate(rows_gt_sr, axis=0)
     grids["2_pred_locs"] = np.concatenate(rows_locs, axis=0)
+
+    text = ctc_collapse_ids(pred_ids[0])
+    if font_path:
+        grids["1_pred_text"] = render_text_row(text, font_path)
+
     grids["3_char_gt"] = hstack_chars(gt_chars[0])
     grids["3_char_prior"] = hstack_chars(prior128[0])
-    return grids, ctc_collapse_ids(pred_ids[0])
+    return grids, text

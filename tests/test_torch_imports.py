@@ -1,8 +1,9 @@
 """Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
-without JAX, cv2, PIL, PyYAML or TensorBoard, so no module of it (nor
-``chip_smoke.py``) may import ``jax``, ``flax``, ``optax``, ``cv2``,
-``PIL``, ``imageio``, ``yaml``, ``tensorboard`` or ``tensorboardX``, or any
-``marconet_tpu`` module (the port keeps its own copies of the
+without JAX, cv2, PIL, PyYAML, TensorBoard or a font library, so no module
+of it (nor ``chip_smoke.py``) may import ``jax``, ``flax``, ``optax``,
+``cv2``, ``PIL``, ``imageio``, ``yaml``, ``tensorboard``, ``tensorboardX``,
+``fontTools``, ``matplotlib`` or ``freetype``, or any ``marconet_tpu``
+module (the port keeps its own copies of the
 framework-free ``alphabet`` and ``version``). Checked on the source
 (AST), for every module, and in a fresh interpreter."""
 
@@ -13,7 +14,8 @@ import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "marconet_tpu_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL",
-                   "imageio", "yaml", "tensorboard", "tensorboardX"}
+                   "imageio", "yaml", "tensorboard", "tensorboardX",
+                   "fontTools", "matplotlib", "freetype"}
 ALLOWED_JAX_PKG: set = set()
 MODULES = sorted(PKG.rglob("*.py"))
 

@@ -104,11 +104,16 @@ def test_batch_loader_through_spawn_workers(tmp_path):
 
 
 def test_batch_loader_reports_a_failed_worker(tmp_path):
-    """The default synthesizer has no glyph renderer: the worker's error
-    reaches the consumer, naming what is missing."""
-    loader = BatchLoader(_config(tmp_path).loop, BATCH, max_chars=SLOTS)
+    """A worker of the default synthesizer that cannot draw (its
+    ``font_dir`` holds a file that is no font) sends its error, which
+    reaches the consumer naming the file."""
+    fonts = tmp_path / "fonts"
+    fonts.mkdir()
+    (fonts / "notes.txt").write_text("not a font\n")
+    loader = BatchLoader(_config(tmp_path, font_dir=str(fonts)).loop, BATCH,
+                         max_chars=SLOTS)
     try:
-        with pytest.raises(RuntimeError, match="font pack"):
+        with pytest.raises(RuntimeError, match="notes.txt: not a TrueType"):
             next(iter(loader))
     finally:
         loader.close()
@@ -229,17 +234,25 @@ def test_cli_parser_keeps_the_jax_flags():
 
 def test_cli_refuses_without_allow_random_lpips(tmp_path, monkeypatch):
     """Without the LPIPS files the CLI stops unless ``--allow_random_lpips``
-    is given; with it, the default synthesizer stops at the first batch
-    naming the missing glyph renderer and font pack."""
+    is given; with it, ``options/train.yml`` (its ``path_font`` on the
+    fixture font) trains a step on lines drawn by the default synthesizer
+    and logs the predicted text as an image."""
+    fonts = pathlib.Path(__file__).resolve().parent / "data" / "fonts"
     text = pathlib.Path("options/train.yml").read_text().replace(
         "  net_g_reg_every: 4",
         f"  net_g_reg_every: 4\n  model_width: {WIDTH}\n"
-        f"  model_max_chars: {SLOTS}")
+        f"  model_max_chars: {SLOTS}").replace(
+        "path_font: ./TrainData/FontsType-V1", f"path_font: {fonts}").replace(
+        "val_freq: !!float 20", "val_freq: 1")
     path = tmp_path / "tiny.yml"
     path.write_text(text)
     monkeypatch.chdir(tmp_path)
     argv = ["-opt", str(path), "--max_steps", "1", "--device", "cpu"]
     with pytest.raises(SystemExit, match="LPIPS"):
         cli_train.main(argv)
-    with pytest.raises(RuntimeError, match="font pack"):
-        cli_train.main(argv + ["--allow_random_lpips"])
+    cli_train.main(argv + ["--allow_random_lpips"])
+    files = events.event_files(str(tmp_path))
+    assert len(files) == 1
+    kinds = {v[0]: v[1] for e in events.read_events(files[0])
+             for v in e["values"]}
+    assert kinds["val/1_pred_text"] == "image"

@@ -1,5 +1,6 @@
 """The port's text-line synthesizer (``marconet_tpu_torch/data/synth.py``)
-against the JAX package's, everything but the glyph rendering.
+against the JAX package's, everything but the glyph rendering (which
+``tests/test_torch_render.py`` holds to the JAX package's).
 
 One seeded renderer (``tests/torch_synth_support.stroke_render``) is
 patched onto both classes, so ``sample`` -- background, render retries,
@@ -115,12 +116,19 @@ def test_batch_matches_jax(pinned, bg_dir, max_chars):
             np.testing.assert_array_equal(got[key], want[key], key)
 
 
-def test_render_names_what_is_missing():
+def test_render_names_what_is_missing(monkeypatch, tmp_path):
+    """With no font in ``font_dir`` and no fallback font, ``render``
+    raises naming both (the JAX package fails there in
+    ``rng.integers(0, 0)``)."""
+    missing = str(tmp_path / "DejaVuSans.ttf")
+    monkeypatch.setattr(tsynth, "FALLBACK_FONTS", (missing,))
     synth = tsynth.TextLineSynthesizer(tsynth.SynthConfig(font_dir="fonts"))
+    assert synth.font_paths == []
     bg = synth.background(np.random.default_rng(0))
     assert bg.shape == (128, 2048, 3)
-    with pytest.raises(NotImplementedError, match="font pack"):
+    with pytest.raises(tsynth.NoFont, match="'fonts'") as err:
         synth.sample(np.random.default_rng(0))
+    assert missing in str(err.value)
 
 
 @pytest.fixture(scope="module")
