@@ -134,8 +134,14 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    names, with the device-busy share and the five kernels with the most
    time; ``crop_bg_patches`` on a seeded 1200 x 900 PNG and the 400 x 400
    JPEG (8 patches); ``syndata_demo`` (4 samples in the fixture font: 16
-   PNGs at their shapes, a text each) and the host ms of one TrueType
-   render a line over 40 seeds; then one f32 training step's peak memory
+   PNGs at their shapes, a text each) and the host ms of one hinted
+   TrueType render a line over 40 seeds and a batch of 2 (beside the
+   unhinted renderer's 13.72 / 37.1 in ``PERF.md``); the hinted glyphs on
+   this host, which has no
+   PIL: the port's ``getmask`` of each of the 177 glyphs the alphabet
+   reaches at 32, 90, 115 and 140 px against the SHA-256 of PIL's in
+   ``tests/data/DejaVuSans.hinted.json`` (any glyph that differs fails
+   the phase); then one f32 training step's peak memory
    at batches 2 and 4, a linear fit, and one timed step at the largest batch the fit
    puts under the card's memory (no out-of-memory error is caught). Exact
    K1 / K2 (and in training K1b / K2 bwd) launches in every run.
@@ -254,8 +260,9 @@ from marconet_tpu_torch.utils.jpeg import (
     jpeg_roundtrip_u8,
     read_jpeg,
 )
-from marconet_tpu_torch.utils import raster, truetype
+from marconet_tpu_torch.utils import raster, text_draw, truetype
 from marconet_tpu_torch.utils.png import decode_png, read_png, write_png
+from tests.torch_render_report import ink_digest
 
 SERVE_BATCH = 16    # bench.py's workload: 16 lines of 8 characters
 SERVE_SLOTS = 8
@@ -2049,6 +2056,10 @@ HOST_BATCHES = 3          # batches synthesized in this process, timed
 # the fixture font (DejaVu Sans): the synthesizer draws its lines with it
 FONT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "tests", "data", "fonts")
+# SHA-256 of the ink of PIL's masks of its glyphs, written on a host with
+# PIL by ``python -m tests.torch_render_report --write-digests``
+HINTED_DIGESTS = os.path.join(os.path.dirname(FONT_DIR),
+                              "DejaVuSans.hinted.json")
 PRED_TEXT_SHAPE = (32, 512, 3)  # the val/1_pred_text panel
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -2997,9 +3008,40 @@ def _io_syndata(smi: str, work: str) -> None:
     ms = (time.perf_counter() - t0) * 1e3 / RENDER_SEEDS
     if drawn < RENDER_SEEDS // 2:
         raise AssertionError(f"{drawn} of {RENDER_SEEDS} renders drawn")
-    say(f"[io] render (TrueType, DejaVu Sans): {ms:.2f} host ms a line over "
-        f"{RENDER_SEEDS} seeds ({drawn} drawn, cold caches), "
-        f"os.cpu_count() {os.cpu_count()}; on {smi}")
+    batch_ms = _host_batch_ms()["render"]
+    say(f"[io] render (hinted TrueType, DejaVu Sans): {ms:.2f} host ms a "
+        f"line over {RENDER_SEEDS} seeds ({drawn} drawn, cold caches), "
+        f"{batch_ms:.1f} host ms a batch of {TRAIN_BATCH} (unhinted before: "
+        f"13.72 / 37.1), os.cpu_count() {os.cpu_count()}; on {smi}")
+    _io_hinted_glyphs()
+
+
+def _io_hinted_glyphs() -> None:
+    """The port's hinted glyphs on this host against PIL's: each
+    character of the digest fixture at each of its sizes, cold caches."""
+    with open(HINTED_DIGESTS) as f:
+        fixture = json.load(f)
+    font_path = os.path.join(os.path.dirname(HINTED_DIGESTS),
+                             fixture["font"])
+    raster.glyph_bitmap.cache_clear()
+    truetype.load_face.cache_clear()
+    differ, n = [], 0
+    t0 = time.perf_counter()
+    for size, digests in fixture["digests"].items():
+        font = text_draw.truetype(font_path, int(size))
+        for ch, want in zip(fixture["chars"], digests):
+            n += 1
+            if ink_digest(*font.getmask(ch)) != want:
+                differ.append((int(size), ch))
+    seconds = time.perf_counter() - t0
+    if differ or not n:
+        raise AssertionError(f"{len(differ)} of {n} hinted glyphs differ "
+                             f"from PIL's ({fixture['made_with']}): "
+                             f"{differ[:20]}")
+    say(f"[io] hinted glyphs: {n} of {n} ({len(fixture['chars'])} glyphs x "
+        f"{len(fixture['digests'])} sizes) ink what PIL's do "
+        f"({fixture['made_with']}; SHA-256 in "
+        f"{os.path.relpath(HINTED_DIGESTS)}), {seconds:.2f} s on this host")
 
 
 def _io_largest_batch(smi: str, add) -> None:

@@ -3,9 +3,8 @@
 Counterpart of ``marconet_tpu/data/synth.py`` with the same random draws
 in the same order. Glyphs are drawn as the JAX package's PIL draws them,
 by the port's own TrueType renderer (``utils/truetype.py``,
-``utils/raster.py``, ``utils/text_draw.py``): the same layout and glyph
-placement, outlines unhinted where PIL hints them (``ROADMAP.md`` §3
-records the gap). Backgrounds are read as cv2 reads them
+``utils/ttinterp.py``, ``utils/raster.py``, ``utils/text_draw.py``): the
+same layout, the same hinted glyphs and the same pixels. Backgrounds are read as cv2 reads them
 (``utils/imread.py``), with the flat fallback wherever cv2 gives None;
 the resizes are ``utils/image.resize``.
 

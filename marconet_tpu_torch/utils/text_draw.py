@@ -1,6 +1,7 @@
 """Pillow's ``ImageDraw.text`` on numpy canvases, with the port's own
-TrueType reader (``utils/truetype.py``) and rasterizer
-(``utils/raster.py``).
+TrueType reader and hinting (``utils/truetype.py``, ``utils/ttinterp.py``)
+and rasterizer (``utils/raster.py``): each glyph is Pillow's bitmap of it,
+pixel for pixel.
 
 ``truetype(path, size)`` stands for ``PIL.ImageFont.truetype(path,
 size)`` and :func:`draw_text` for ``ImageDraw.Draw(image).text(xy, text,

@@ -4,16 +4,33 @@ shaping that Pillow's RAQM layout (libraqm over HarfBuzz) gives.
 The JAX package draws text with ``PIL.ImageFont.truetype`` and
 ``ImageDraw.text`` (``marconet_tpu/data/synth.py``); the card's machine has
 no PIL, so the port reads the font itself (:class:`TrueTypeFace`), lays the
-text out here (:meth:`TrueTypeFace.shape`), rasterizes glyph outlines in
-``utils/raster.py`` and draws in ``utils/text_draw.py``.
+text out here (:meth:`TrueTypeFace.shape`), loads glyphs here as
+FreeType's TrueType module loads them, hinted by ``utils/ttinterp.py``,
+rasterizes them in ``utils/raster.py`` and draws in
+``utils/text_draw.py``.
 
-Reader: the table directory, ``head``, ``hhea``, ``maxp``, ``hmtx``,
-``cmap`` (formats 4 and 12, Windows Unicode full repertoire (3, 10)
-before BMP (3, 1); a character the font lacks is glyph 0, ``.notdef``),
-``loca`` and ``glyf`` (simple glyphs with their flag repeats and delta
+Reader: the table directory, ``head``, ``hhea``, ``maxp`` (with version
+1.0's limits for the interpreter), ``hmtx``, ``vhea`` / ``vmtx`` or
+``OS/2``'s typographic metrics (the vertical phantom points), ``cmap``
+(formats 4 and 12, Windows Unicode full repertoire (3, 10) before BMP
+(3, 1); a character the font lacks is glyph 0, ``.notdef``), ``loca`` and
+``glyf`` (simple glyphs with their instructions, flag repeats and delta
 coordinates; composites with word or byte arguments, x/y offsets or
-matched points, the three scale forms and scaled offsets), and the
-``GSUB`` / ``GPOS`` lookups that shaping uses.
+matched points, the three scale forms, their flags and instructions),
+``cvt ``, ``fpgm``, ``prep``, and the ``GSUB`` / ``GPOS`` lookups that
+shaping uses.
+
+Glyph loading (:meth:`TrueTypeFace.load`), as ``TT_Load_Glyph``: a simple
+glyph's points and its four phantom points are scaled to 26.6 with
+``FT_MulFix``, its phantom points rounded and its program run; a
+composite loads (and hints) each component at the size, transforms it in
+16.16, moves it by its offset scaled alone (by ``FT_Hypot`` of the
+transform for a scaled offset; rounded to the grid in y, and in x without
+backward compatibility, when asked) or by matched hinted points, then
+runs its own program on all of them; the outline is moved by the left
+phantom point. Not here: FreeType auto-hints (a different module, not
+the bytecode interpreter) a font that has no ``fpgm``; such a font is
+hinted here by its own bytecode, if it has any.
 
 Shaping, as RAQM and HarfBuzz shape a left-to-right line:
 
@@ -50,19 +67,25 @@ from __future__ import annotations
 import bisect
 import functools
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from marconet_tpu_torch.utils import ttinterp
 
 # composite glyph flags
 _ARG_WORDS = 0x0001
 _ARGS_XY = 0x0002
+_ROUND_XY = 0x0004
 _HAVE_SCALE = 0x0008
 _MORE = 0x0020
 _HAVE_XY_SCALE = 0x0040
 _HAVE_2X2 = 0x0080
+_HAVE_INSTRUCTIONS = 0x0100
+_USE_MY_METRICS = 0x0200
+_OVERLAP_COMPOUND = 0x0400
 _SCALED_OFFSET = 0x0800
-_UNSCALED_OFFSET = 0x1000
+_OVERLAP_SIMPLE = 0x40        # a simple glyph's first point flag
 
 GSUB_FEATURES = frozenset(
     [b"ccmp", b"locl", b"rlig", b"calt", b"clig", b"liga", b"rclt"])
@@ -175,10 +198,7 @@ def script_runs(text: str) -> List[Tuple[int, int, str]]:
     return runs
 
 
-def _mul_fix(a: int, b: int) -> int:
-    """FreeType's ``FT_MulFix``: a * b / 65536, rounded half away from 0."""
-    c = (abs(a) * abs(b) + 0x8000) >> 16
-    return c if (a < 0) == (b < 0) else -c
+_mul_fix = ttinterp.mul_fix
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +568,47 @@ class TrueTypeFace:
                      if b"GSUB" in self.tables else None)
         self.gpos = (_Layout(self._table(b"GPOS"), True)
                      if b"GPOS" in self.tables else None)
+        self._read_hinting_tables()
+        self._records: Dict[int, object] = {}
         self._outlines: Dict[int, tuple] = {}
+        self._hinting: Optional[ttinterp.FontHinting] = None
+
+    def _read_hinting_tables(self) -> None:
+        """``cvt `` (FWORDs), ``fpgm``, ``prep``, ``maxp`` 1.0's limits,
+        the vertical metrics behind the phantom points (``vhea`` /
+        ``vmtx``, else ``OS/2``'s typographic ascender and descender, else
+        ``hhea``'s)."""
+        data = self.data
+        cvt = self._table(b"cvt ") if b"cvt " in self.tables else b""
+        self.cvt = list(struct.unpack(f">{len(cvt) // 2}h",
+                                      cvt[:len(cvt) // 2 * 2]))
+        self.fpgm = self._table(b"fpgm") if b"fpgm" in self.tables else b""
+        self.prep = self._table(b"prep") if b"prep" in self.tables else b""
+        maxp, maxp_len = self.tables[b"maxp"]
+        if _u16(data, maxp) == 1 and maxp_len >= 32:
+            (_, _, _, _, _, self.max_twilight, self.max_storage,
+             self.max_fdefs, self.max_idefs, self.max_stack) = \
+                struct.unpack_from(">10H", data, maxp + 6)
+        else:
+            self.max_twilight = self.max_storage = self.max_fdefs = 0
+            self.max_idefs = self.max_stack = 0
+        self.vmetrics = None
+        if b"vhea" in self.tables and b"vmtx" in self.tables:
+            n_vmetrics = _u16(data, self.tables[b"vhea"][0] + 34)
+            vmtx = self.tables[b"vmtx"][0]
+
+            def vmetrics(gid: int) -> Tuple[int, int]:
+                k = min(gid, n_vmetrics - 1)
+                adv = _u16(data, vmtx + 4 * k)
+                at = (vmtx + 4 * gid + 2 if gid < n_vmetrics else
+                      vmtx + 4 * n_vmetrics + 2 * (gid - n_vmetrics))
+                return struct.unpack_from(">h", data, at)[0], adv
+            self.vmetrics = vmetrics
+        if b"OS/2" in self.tables:
+            self.typo_metrics = struct.unpack_from(
+                ">2h", data, self.tables[b"OS/2"][0] + 68)
+        else:
+            self.typo_metrics = (self.ascender, self.descender)
 
     def _table(self, tag: bytes) -> bytes:
         off, length = self.tables[tag]
@@ -613,42 +673,37 @@ class TrueTypeFace:
 
     # -- outlines ----------------------------------------------------------
 
-    def outline(self, gid: int):
-        """(points (N, 2) int64 font units, on-curve (N,) bool, contour
-        end indices) of glyph ``gid``, composites resolved; cached."""
-        if gid not in self._outlines:
-            self._outlines[gid] = self._read_outline(gid, 0)
-        return self._outlines[gid]
-
-    def x_min(self, gid: int) -> int:
-        """``xMin`` of the glyph's ``glyf`` header (0 for an empty one)."""
-        start, end = self.loca[gid], self.loca[gid + 1]
-        if end <= start:
-            return 0
-        return struct.unpack_from(">h", self.data, self.glyf + start + 2)[0]
-
-    def _read_outline(self, gid: int, depth: int):
-        if depth > 8:
-            raise FontError(f"{self.path}: composite glyph {gid} nests too "
-                            "deep")
-        empty = (np.zeros((0, 2), np.int64), np.zeros(0, bool), [])
-        if not 0 <= gid < self.num_glyphs:
-            return empty
+    def _record(self, gid: int):
+        """Glyph ``gid``'s ``glyf`` entry, parsed once: None for an empty
+        glyph, else ``(bbox, simple, body, program)``: a simple glyph's
+        body is (x list, y list, on-curve list, contour ends, whether it
+        is flagged OVERLAP_SIMPLE), a composite's its components (flags,
+        glyph, arg1, arg2, 16.16 transform (xx, yx, xy, yy) or None);
+        ``program`` its instructions (a ``ttinterp.Program``) or None."""
+        got = self._records.get(gid, False)
+        if got is not False:
+            return got
+        rec = None
         start, end = int(self.loca[gid]), int(self.loca[gid + 1])
-        if end <= start:
-            return empty
-        data, off = self.data, self.glyf + start
-        n_contours = struct.unpack_from(">h", data, off)[0]
-        if n_contours >= 0:
-            return self._simple(off, n_contours)
-        return self._composite(off + 10, depth)
+        if end > start:
+            data, off = self.data, self.glyf + start
+            n_contours, *bbox = struct.unpack_from(">5h", data, off)
+            if n_contours > 0:
+                rec = self._simple(off, n_contours, tuple(bbox))
+            elif n_contours < 0:
+                rec = self._composite(off + 10, tuple(bbox))
+        self._records[gid] = rec
+        return rec
 
-    def _simple(self, off: int, n_contours: int):
+    def _simple(self, off: int, n_contours: int, bbox):
         data = self.data
         ends = list(struct.unpack_from(f">{n_contours}H", data, off + 10))
-        n = ends[-1] + 1 if ends else 0
+        n = ends[-1] + 1
         p = off + 10 + 2 * n_contours
-        p += 2 + _u16(data, p)                       # instructions
+        n_ins = _u16(data, p)
+        program = (ttinterp.Program(data[p + 2:p + 2 + n_ins]) if n_ins
+                   else None)
+        p += 2 + n_ins
         flags = []
         while len(flags) < n:
             f = data[p]
@@ -658,11 +713,11 @@ class TrueTypeFace:
                 flags.extend([f] * data[p])
                 p += 1
         flags = flags[:n]
-        coords = np.zeros((n, 2), np.int64)
-        for axis, short, same in ((0, 0x02, 0x10), (1, 0x04, 0x20)):
+        axes = []
+        for short, same in ((0x02, 0x10), (0x04, 0x20)):
             v = 0
-            col = coords[:, axis]
-            for i, f in enumerate(flags):
+            col = []
+            for f in flags:
                 if f & short:
                     d = data[p]
                     p += 1
@@ -670,14 +725,15 @@ class TrueTypeFace:
                 elif not f & same:
                     v += struct.unpack_from(">h", data, p)[0]
                     p += 2
-                col[i] = v
-        on = np.array([bool(f & 1) for f in flags], bool)
-        return coords, on, ends
+                col.append(v)
+            axes.append(col)
+        on = [bool(f & 1) for f in flags]
+        overlap = bool(flags[0] & _OVERLAP_SIMPLE)
+        return bbox, True, (axes[0], axes[1], on, ends, overlap), program
 
-    def _composite(self, p: int, depth: int):
+    def _composite(self, p: int, bbox):
         data = self.data
-        pts, ons, ends = [], [], []
-        total = 0
+        comps = []
         while True:
             flags, child = struct.unpack_from(">2H", data, p)
             p += 4
@@ -691,40 +747,202 @@ class TrueTypeFace:
                 p += 2
             m = None
             if flags & _HAVE_SCALE:
-                s = struct.unpack_from(">h", data, p)[0] / 16384.0
-                m = (s, 0.0, 0.0, s)
+                xx = struct.unpack_from(">h", data, p)[0] * 4
+                m = (xx, 0, 0, xx)
                 p += 2
             elif flags & _HAVE_XY_SCALE:
-                sx, sy = struct.unpack_from(">2h", data, p)
-                m = (sx / 16384.0, 0.0, 0.0, sy / 16384.0)
+                xx, yy = struct.unpack_from(">2h", data, p)
+                m = (xx * 4, 0, 0, yy * 4)
                 p += 4
             elif flags & _HAVE_2X2:
-                m = tuple(v / 16384.0 for v in
-                          struct.unpack_from(">4h", data, p))
+                m = tuple(v * 4 for v in struct.unpack_from(">4h", data, p))
                 p += 8
-            cpts, con, cends = self._read_outline(child, depth + 1)
-            cpts = cpts.astype(np.float64)
-            if m is not None:
-                xx, xy, yx, yy = m
-                cpts = np.stack([cpts[:, 0] * xx + cpts[:, 1] * yx,
-                                 cpts[:, 0] * xy + cpts[:, 1] * yy], axis=1)
-            if flags & _ARGS_XY:
-                dx, dy = float(a1), float(a2)
-                if m is not None and flags & _SCALED_OFFSET \
-                        and not flags & _UNSCALED_OFFSET:
-                    xx, xy, yx, yy = m
-                    dx, dy = dx * xx + dy * yx, dx * xy + dy * yy
-            else:                                    # matched points
-                parent = np.concatenate(pts) if pts else np.zeros((0, 2))
-                dx, dy = parent[a1] - cpts[a2]
-            pts.append(cpts + (dx, dy))
-            ons.append(con)
-            ends.extend(e + total for e in cends)
-            total += len(cpts)
+            comps.append((flags, child, a1, a2, m))
             if not flags & _MORE:
                 break
-        coords = np.rint(np.concatenate(pts)).astype(np.int64)
-        return coords, np.concatenate(ons), ends
+        program = None
+        if flags & _HAVE_INSTRUCTIONS:
+            n_ins = _u16(data, p)
+            if n_ins:
+                program = ttinterp.Program(data[p + 2:p + 2 + n_ins])
+        return bbox, False, comps, program
+
+    def outline(self, gid: int):
+        """(points (N, 2) int64 font units, on-curve (N,) bool, contour
+        end indices) of glyph ``gid``, composites resolved as FreeType
+        resolves them unscaled (``FT_LOAD_NO_SCALE``); cached."""
+        if gid not in self._outlines:
+            self._outlines[gid] = self.load(gid, None, hinted=False)[:3]
+        return self._outlines[gid]
+
+    def hinted_outline(self, gid: int, size: int) -> "GlyphOutline":
+        """Glyph ``gid`` at ``size`` px as Pillow loads it (FreeType's
+        ``FT_LOAD_DEFAULT``: scaled and hinted)."""
+        return self.load(gid, size, hinted=True)
+
+    def x_min(self, gid: int) -> int:
+        """``xMin`` of the glyph's ``glyf`` header (0 for an empty one)."""
+        rec = self._record(gid)
+        return rec[0][0] if rec is not None else 0
+
+    def hinting(self) -> ttinterp.FontHinting:
+        """The font's bytecode interpreter, its ``fpgm`` run once."""
+        if self._hinting is None:
+            self._hinting = ttinterp.FontHinting(
+                cvt=self.cvt, fpgm=self.fpgm, prep=self.prep,
+                max_stack=self.max_stack, max_storage=self.max_storage,
+                max_twilight=self.max_twilight, max_fdefs=self.max_fdefs,
+                max_idefs=self.max_idefs)
+        return self._hinting
+
+    def load(self, gid: int, size: Optional[int],
+             hinted: bool = True) -> "GlyphOutline":
+        """Glyph ``gid`` loaded as FreeType's TrueType module loads it
+        (``TT_Load_Glyph``): at ``size`` px in 26.6, hinted or not, or in
+        font units for ``size`` None; the outline starts at the glyph
+        origin (moved by the left phantom point)."""
+        scale = self.scale(size) if size is not None else None
+        state = None
+        if hinted and scale is not None:
+            hint = self.hinting()
+            state = hint.size(size, scale)
+            if state.error:
+                raise FontError(f"{self.path}: the font's hinting program "
+                                f"failed at {size} px ({state.error})")
+            if state.gs.instruct_control & 1:      # prep turned hinting off
+                state = None
+            else:
+                hint.start_glyph(state)
+        out = _Outline()
+        pp = self._load(out, gid, 0, scale, state)
+        xs, ys = out.x, out.y
+        if pp[0][0]:
+            xs = [v - pp[0][0] for v in xs]
+        pts = np.array([xs, ys], np.int64).T.reshape(-1, 2)
+        return GlyphOutline(pts, np.array(out.on, bool), out.ends,
+                            out.overlap)
+
+    def _phantoms(self, gid: int, bbox):
+        """The four phantom points in font units (``TT_LOADER_SET_PP``)."""
+        x_min, _, _, y_max = bbox
+        pp1x = x_min - int(self.lsb[gid])
+        if self.vmetrics is not None:
+            tsb, vadv = self.vmetrics(gid)
+        else:
+            asc, desc = self.typo_metrics
+            tsb, vadv = asc - y_max, abs(asc - desc)
+        pp3y = y_max + tsb
+        return [pp1x, pp1x + int(self.advances[gid]), 0, 0], \
+            [0, 0, pp3y, pp3y - vadv]
+
+    def _load(self, out: "_Outline", gid: int, depth: int,
+              scale: Optional[int], state) -> List[Tuple[int, int]]:
+        """``load_truetype_glyph``: append glyph ``gid``'s points to
+        ``out``; its phantom points (scaled) after loading."""
+        if depth > 8:
+            raise FontError(f"{self.path}: composite glyph {gid} nests too "
+                            "deep")
+        if not 0 <= gid < self.num_glyphs:
+            raise FontError(f"{self.path}: no glyph {gid}")
+        rec = self._record(gid)
+        px, py = self._phantoms(gid, rec[0] if rec else (0, 0, 0, 0))
+
+        def scaled(v):
+            return [_mul_fix(a, scale) for a in v] if scale is not None \
+                else list(v)
+
+        if rec is None or not rec[1]:
+            pp = list(zip(scaled(px), scaled(py)))
+            if rec is None:
+                return pp
+            return self._load_composite(out, rec, depth, scale, state, pp)
+        _, _, (xs, ys, on, ends, overlap), program = rec
+        out.overlap |= overlap
+        n = len(xs)
+        ux, uy = xs + px, ys + py
+        cx, cy = scaled(ux), scaled(uy)
+        pp = list(zip(cx[n:], cy[n:]))
+        tags = [int(v) for v in on] + [0] * 4
+        if state is not None:
+            zone = ttinterp.Zone.glyph(cx, cy, tags, ends, ux, uy)
+            if not self.hinting().hint(state, zone, program, False):
+                pp = list(zip(zone.cx[n:], zone.cy[n:]))
+            cx, cy, tags = zone.cx, zone.cy, zone.tags
+        base = len(out.x)
+        out.x.extend(cx[:n])
+        out.y.extend(cy[:n])
+        out.on.extend(bool(t & 1) for t in tags[:n])
+        out.ends.extend(e + base for e in ends)
+        return pp
+
+    def _load_composite(self, out: "_Outline", rec, depth: int,
+                        scale: Optional[int], state, pp):
+        _, _, comps, program = rec
+        start_point, start_contour = len(out.x), len(out.ends)
+        # FreeType reads OVERLAP_COMPOUND on the first component only
+        out.overlap |= bool(comps[0][0] & _OVERLAP_COMPOUND)
+        for flags, child, a1, a2, m in comps:
+            base = len(out.x)
+            got = self._load(out, child, depth + 1, scale, state)
+            if flags & _USE_MY_METRICS:
+                pp = got
+            if len(out.x) == base:
+                continue
+            self._place(out, flags, a1, a2, m, start_point, base, scale,
+                        state)
+        if state is None or not comps[-1][0] & _HAVE_INSTRUCTIONS \
+                or len(out.x) <= start_point or program is None:
+            return pp
+        n = len(out.x) - start_point
+        zone = ttinterp.Zone.glyph(
+            out.x[start_point:] + [p[0] for p in pp],
+            out.y[start_point:] + [p[1] for p in pp],
+            [int(v) for v in out.on[start_point:]] + [0] * 4,
+            [e - start_point for e in out.ends[start_contour:]])
+        if not self.hinting().hint(state, zone, program, True):
+            pp = list(zip(zone.cx[n:], zone.cy[n:]))
+        out.x[start_point:] = zone.cx[:n]
+        out.y[start_point:] = zone.cy[:n]
+        out.on[start_point:] = [bool(t & 1) for t in zone.tags[:n]]
+        return pp
+
+    def _place(self, out: "_Outline", flags: int, a1: int, a2: int, m,
+               start_point: int, base: int, scale: Optional[int],
+               state) -> None:
+        """``TT_Process_Composite_Component``: transform the component
+        just loaded (points ``base:``) and move it to its place."""
+        xs, ys = out.x, out.y
+        if m is not None:
+            xx, yx, xy, yy = m
+            for i in range(base, len(xs)):
+                x, y = xs[i], ys[i]
+                xs[i] = _mul_fix(x, xx) + _mul_fix(y, xy)
+                ys[i] = _mul_fix(x, yx) + _mul_fix(y, yy)
+        if not flags & _ARGS_XY:                 # matched points
+            k, l = a1 + start_point, a2 + base
+            if k >= base or l >= len(xs):
+                raise FontError(f"{self.path}: a composite glyph matches "
+                                "a point it does not have")
+            dx, dy = xs[k] - xs[l], ys[k] - ys[l]
+        else:
+            dx, dy = a1, a2
+            if not dx and not dy:
+                return
+            if m is not None and flags & _SCALED_OFFSET:
+                xx, yx, xy, yy = m
+                dx = _mul_fix(dx, ttinterp.hypot(xx, xy))
+                dy = _mul_fix(dy, ttinterp.hypot(yy, yx))
+            if scale is not None:
+                dx, dy = _mul_fix(dx, scale), _mul_fix(dy, scale)
+                if flags & _ROUND_XY and state is not None:
+                    # v40 rounds x only without backward compatibility
+                    if not self.hinting().e.backward_compatibility:
+                        dx = (dx + 32) & -64
+                    dy = (dy + 32) & -64
+        if dx or dy:
+            for i in range(base, len(xs)):
+                xs[i] += dx
+                ys[i] += dy
 
     # -- layout ------------------------------------------------------------
 
@@ -786,6 +1004,31 @@ class TrueTypeFace:
         hinting): 16.16 pixels rounded to 26.6."""
         v = (int(self.advances[gid]) * scale + 32) // 64
         return (v + (1 << 9)) >> 10
+
+
+class GlyphOutline(NamedTuple):
+    """A loaded glyph: points (N, 2) int64 (26.6 px, or font units), y up;
+    on-curve flags (N,) bool; the contours' last point indices; whether
+    the glyph is flagged OVERLAP_SIMPLE or OVERLAP_COMPOUND (FreeType then
+    rasterizes it oversampled)."""
+
+    points: np.ndarray
+    on: np.ndarray
+    ends: List[int]
+    overlap: bool
+
+
+class _Outline:
+    """The points loaded so far (FreeType's glyph loader's base)."""
+
+    __slots__ = ("x", "y", "on", "ends", "overlap")
+
+    def __init__(self):
+        self.overlap = False
+        self.x: List[int] = []
+        self.y: List[int] = []
+        self.on: List[bool] = []
+        self.ends: List[int] = []
 
 
 @functools.lru_cache(maxsize=32)

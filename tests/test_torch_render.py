@@ -9,27 +9,25 @@ blend and the clipping, glyph origins rounded to whole pixels (half up),
 the glyphs of a string composited with that same blend (not by their
 maximum), the baseline at the rounded-up ascender.
 
-The port draws unhinted outlines where PIL runs the font's TrueType
-hinting, so pixels are held to tolerances, chosen from what hinting moves
-(stems by up to a pixel, vertically) and measured over 1000 seeds
-(``PERF.md``):
+The port hints glyphs as PIL's FreeType does (``utils/ttinterp.py``, held
+to FreeType point for point in ``tests/test_torch_hinting.py``) and
+rasterizes them as FreeType does, so pixels are held equal:
 
 * ``draw_text`` against ``ImageDraw.text`` at sizes 90, 115 and 140 and at
-  the render's extreme positions: first and last ink columns within 2 px;
-  IoU of the ``> 128`` masks at least 0.8 on every case and 0.9 on
-  average;
+  the render's extreme positions, on ``L`` and ``RGB`` canvases: equal;
 * ``render`` against the JAX package's over 200 seeds on one background:
-  the same text and labels; the same None-or-not and generator state
-  after it on at least 98% of seeds; ``char_locs`` within 2 px on at
-  least 99% of the rendered seeds (a hinted stem snaps across the canvas
-  edge on some seeds: 1 of 200 here, 4 of 1000) and within 8 px on all;
-  mask IoU as above;
-* ``sample`` on two seeds: ``label``, ``text`` and ``boxinfo`` within
-  2/2048;
+  the same None-or-not and generator state, text, labels, ``char_locs``,
+  ink mask and image on every seed;
+* ``sample`` on two seeds: ``text``, ``label``, ``boxinfo``, ``gt`` and
+  ``mask`` equal; ``lq`` within the degradations' tolerance
+  (``tests/test_torch_degrade.py``: its resize and filter follow
+  OpenCV's float order, not its bits);
+* ``render_text_row``, the visual grid's text row and ``syndata_demo``'s
+  files equal the JAX package's (``lq`` within one level);
 * the port's render at most 4x PIL's time on 40 seeds.
 
-``python -m tests.torch_render_report`` measures the render's rates over
-1000 seeds and both times.
+``python -m tests.torch_render_report`` measures the render over 1000
+seeds, both times, and sweeps every glyph against FreeType.
 """
 
 import os
@@ -49,6 +47,7 @@ from marconet_tpu_torch.data import synth as tsynth
 from marconet_tpu_torch.train import visuals as tvisuals
 from marconet_tpu_torch.utils import raster, text_draw
 from marconet_tpu_torch.utils.png import read_png
+from tests.test_torch_degrade import _assert_close
 from tests.torch_render_report import compare_renders, summary, \
     time_renders
 
@@ -58,8 +57,6 @@ FONT = os.path.join(FONT_DIR, "DejaVuSans.ttf")
 SIZES = (90, 115, 140)
 # the corners of the render's positions: x in [-10, 20], y in [-20, 10]
 CORNERS = ((-10, -20), (20, 10), (-10, 10), (20, -20))
-COLUMNS_PX = 2
-IOU_EACH, IOU_MEAN = 0.8, 0.9
 
 
 def _pil_mask(font, text):
@@ -79,11 +76,6 @@ def _texts(seed: int, n: int):
 def _ink(img):
     cols = np.nonzero(img.astype(np.int64).sum(axis=0) > 1)[0]
     return (int(cols.min()), int(cols.max())) if cols.size else None
-
-
-def _iou(a, b):
-    union = (a | b).sum()
-    return (a & b).sum() / union if union else 1.0
 
 
 # -- PIL's rules, pinned -----------------------------------------------------
@@ -207,25 +199,16 @@ def test_fill_gives_exact_area_coverage():
 def test_draw_text_matches_pil(size):
     pil = ImageFont.truetype(FONT, size)
     font = text_draw.truetype(FONT, size)
-    ious, cols = [], 0
+    inked = 0
     for xy in CORNERS:
         for text in _texts(size, 12):
             want = Image.new("L", (2048, 128))
             ImageDraw.Draw(want).text(xy, text, font=pil, fill=255)
-            want = np.asarray(want)
             got = np.zeros((128, 2048), np.uint8)
             text_draw.draw_text(got, xy, text, font, 255)
-            a, b = _ink(want), _ink(got)
-            assert (a is None) == (b is None), (xy, text)
-            if a is not None:
-                cols = max(cols, abs(a[0] - b[0]), abs(a[1] - b[1]))
-                assert cols <= COLUMNS_PX, (xy, text, a, b)
-            iou = _iou(want > 128, got > 128)
-            assert iou >= IOU_EACH, (xy, text, iou)
-            ious.append(iou)
-    print(f"size {size}: {len(ious)} draws, ink columns within {cols} px, "
-          f"IoU min {min(ious):.4f} mean {np.mean(ious):.4f}")
-    assert np.mean(ious) >= IOU_MEAN
+            np.testing.assert_array_equal(got, np.asarray(want), (xy, text))
+            inked += got.any()
+    assert inked == len(CORNERS) * (11 + 12)
 
 
 def test_draw_text_on_rgb_matches_pil():
@@ -237,15 +220,8 @@ def test_draw_text_on_rgb_matches_pil():
     ImageDraw.Draw(img).text((7, -5), "Ab中文fi", font=pil, fill=(9, 200, 77))
     got = bg.copy()
     text_draw.draw_text(got, (7, -5), "Ab中文fi", font, (9, 200, 77))
-    want = np.asarray(img)
-    changed_w, changed_g = (want != bg).any(axis=2), (got != bg).any(axis=2)
-    assert _iou(changed_w, changed_g) >= IOU_EACH
-    # where the port's mask is full, the pixel is the fill colour
-    mask, (dx, dy) = font.getmask("Ab中文fi")
-    marks = np.zeros((128, 2048), np.uint8)
-    text_draw.blend(marks, mask, (7 + dx, -5 + dy), 255)
-    full = marks == 255
-    assert full.sum() > 1000 and (got[full] == [9, 200, 77]).all()
+    np.testing.assert_array_equal(got, np.asarray(img))
+    assert (got != bg).any(axis=2).sum() > 1000
 
 
 # -- the synthesizer against the JAX package ---------------------------------
@@ -269,10 +245,9 @@ def test_font_paths_match_jax(synths, tmp_path):
 def test_render_matches_jax():
     c = compare_renders(200)
     print(summary(c))
-    assert c["texts"]
-    assert c["agree"] >= 0.98 * c["seeds"]
-    assert (c["locs"] <= COLUMNS_PX).mean() >= 0.99 and c["locs"].max() <= 8
-    assert c["iou"].min() >= IOU_EACH and c["iou"].mean() >= IOU_MEAN
+    assert c["texts"] and c["agree"] == c["seeds"] and c["drawn"] > 150
+    assert (c["locs"] == 0).all()
+    assert c["masks"] == c["images"] == c["drawn"]
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -281,11 +256,9 @@ def test_sample_matches_jax(synths, seed):
     want = jax_synth.sample(np.random.default_rng(seed))
     got = port_synth.sample(np.random.default_rng(seed))
     assert got["text"] == want["text"]
-    np.testing.assert_array_equal(got["label"], want["label"])
-    np.testing.assert_allclose(got["boxinfo"], want["boxinfo"], rtol=0,
-                               atol=2 / 2048)
-    for key in ("gt", "mask", "lq"):
-        assert got[key].shape == want[key].shape, key
+    for key in ("label", "boxinfo", "gt", "mask"):
+        np.testing.assert_array_equal(got[key], want[key], key)
+    _assert_close(got["lq"], want["lq"], "lq")
 
 
 def test_render_time_within_four_times_pil():
@@ -305,10 +278,8 @@ def test_render_text_row_matches_jax(seed):
     want = jvisuals.render_text_row(text, font_path=FONT)
     got = tvisuals.render_text_row(text, FONT)
     assert got.shape == want.shape == (32, 512, 3) and got.dtype == np.uint8
-    assert (got[..., [0, 2]] == 0).all()
-    a, b = _ink(want[..., 1]), _ink(got[..., 1])
-    assert abs(a[0] - b[0]) <= COLUMNS_PX and abs(a[1] - b[1]) <= COLUMNS_PX
-    assert _iou(want[..., 1] > 128, got[..., 1] > 128) >= IOU_EACH
+    assert (got[..., [0, 2]] == 0).all() and got.any()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_visual_grid_draws_the_text_with_a_font():
@@ -331,16 +302,13 @@ def test_visual_grid_draws_the_text_with_a_font():
     assert set(grids) == set(want)
     np.testing.assert_array_equal(
         grids["1_pred_text"], tvisuals.render_text_row(text, FONT))
-    assert _iou(grids["1_pred_text"][..., 1] > 128,
-                want["1_pred_text"][..., 1] > 128) >= IOU_EACH
+    np.testing.assert_array_equal(grids["1_pred_text"], want["1_pred_text"])
 
 
 def test_syndata_demo_matches_jax_tool(tmp_path, capsys):
-    """The same files of the same shapes and the same printed lines. The
-    first sample's text is the same on both sides; a later one's only
-    while the generators agree, and the Poisson noise of the degradations
-    draws as many variates as the pixels ask for, so one differing pixel
-    parts the streams: later texts are compared in number, not value."""
+    """The same files and the same printed lines: every sample's text,
+    its ``gt``, ``mask`` and ``locs`` images equal, its ``lq`` within one
+    level (the degradations' tolerance)."""
     args = ["-o", None, "-n", "3", "--font_dir", FONT_DIR,
             "--bg_dir", str(tmp_path / "none")]
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
@@ -355,7 +323,7 @@ def test_syndata_demo_matches_jax_tool(tmp_path, capsys):
     want_lines = proc.stdout.splitlines()
     got_lines = capsys.readouterr().out.splitlines()
     assert len(got_lines) == len(want_lines) == 4
-    assert got_lines[0] == want_lines[0]
+    assert got_lines[:3] == want_lines[:3]
     assert got_lines[-1].split(" to ")[0] == want_lines[-1].split(" to ")[0]
     names = sorted(os.listdir(jax_dir))
     assert sorted(os.listdir(port_dir)) == names and len(names) == 12
@@ -365,6 +333,7 @@ def test_syndata_demo_matches_jax_tool(tmp_path, capsys):
                             cv2.COLOR_BGR2RGB)
         got = read_png(str(port_dir / name))
         assert got.shape == want.shape and got.dtype == want.dtype, name
-    want = cv2.imread(str(jax_dir / "000_mask.png"))[..., 0] > 0
-    assert _iou(read_png(str(port_dir / "000_mask.png"))[..., 0] > 0,
-                want) >= IOU_EACH
+        if name.endswith("_lq.png"):
+            _assert_close(got / 255.0, want / 255.0, name)
+        else:
+            np.testing.assert_array_equal(got, want, name)
