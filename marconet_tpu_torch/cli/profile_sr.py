@@ -1,13 +1,14 @@
 """Capture a ``torch.profiler`` trace of the restore pipeline (counterpart
 of ``tools/profile_sr.py``).
 
-A seeded random bf16 ``MARCONet``, its parameters cast to bf16 as
-``bench.py`` casts them, restores ``--batch`` lines of
-``--slots`` characters (the JAX tool's inputs: numpy seed 0, labels below
-6735, ``bench.py``'s character layout): one warm-up restore, then
-``--iters`` restores under ``torch.profiler`` (host and, on the card,
-CUDA activity; each restore a ``marconet/restore`` span), exported as a
-Chrome trace (``chrome://tracing``, Perfetto) to
+A seeded random ``MARCONet`` computing in bf16 over f32 parameters, as
+the JAX tool's net and ``cli/serve_demo.py`` run, restores ``--batch``
+lines of ``--slots`` characters (the JAX tool's inputs: numpy seed 0,
+labels below 6735, ``bench.py``'s character layout): one warm-up restore,
+then ``--iters`` restores under ``torch.profiler`` (host and, on the card,
+CUDA activity; each restore the pipeline's own ``pipeline/restore`` span
+around ``pipeline/encoder``, ``pipeline/prior`` and ``pipeline/srnet``),
+exported as a Chrome trace (``chrome://tracing``, Perfetto) to
 ``<out_dir>/restore_trace.json``::
 
     python -m marconet_tpu_torch.cli.profile_sr -o traces/ [--device cpu]
@@ -22,7 +23,7 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from marconet_tpu_torch.models.pipeline import MARCONet
 
@@ -54,8 +55,7 @@ def profile_restore(net: MARCONet, out_dir: str, batch: int = 16,
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         for _ in range(iters):
-            with record_function("marconet/restore"):
-                out = net.restore(*inputs)
+            out = net.restore(*inputs)
         float(out.sr.float().mean())
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, TRACE)
@@ -77,8 +77,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = parser().parse_args(argv)
-    net = MARCONet(dtype=torch.bfloat16, device=args.device, seed=0).to(
-        torch.bfloat16)
+    net = MARCONet(dtype=torch.bfloat16, device=args.device, seed=0)
     return profile_restore(net, args.out_dir, args.batch, args.slots,
                            args.iters)
 

@@ -8,6 +8,11 @@ and locs; the detection / recognition front-end is a separate component.
 Public tensors are NHWC like the JAX package's: ``restore`` takes
 ``lq`` (B, 32, 512, 3) and returns ``sr`` (B, 128, 2048, 3) and
 ``priors`` (B, N, 128, 128, 3). Inside, tensors are NCHW channels_last.
+
+Under ``torch.profiler`` a restore is the span ``pipeline/restore`` around
+``pipeline/encoder``, ``pipeline/prior`` and ``pipeline/srnet``; on a CUDA
+device each also times its stretch of the stream
+(``utils/tracing.settle``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from marconet_tpu_torch.models.prior import (
 )
 from marconet_tpu_torch.models.srnet import StructurePriorSRNet
 from marconet_tpu_torch.ops.layers import Precision, set_compute_dtype
+from marconet_tpu_torch.utils.tracing import span
 
 
 def resolve_device(device) -> torch.device:
@@ -58,9 +64,12 @@ class MARCONet(Precision, nn.Module):
         out = net.restore(lq, labels, locs, char_mask)
 
     ``dtype`` is the compute precision, as in the JAX package: the
-    parameters stay float32 (a bf16 net over an f32 checkpoint computes
-    as the JAX tools do) unless the caller casts them, e.g.
-    ``net.to(torch.bfloat16)`` for ``bench.py``'s bf16 parameters.
+    parameters stay float32, so a bf16 net over an f32 checkpoint computes
+    as the JAX tools and every CLI of the port do.
+
+    Counts kept on every :meth:`restore`, from shapes alone: ``restores``,
+    ``rows`` (lines, padding included) and ``slots`` (rows times the
+    character slots).
 
     Args:
       width: channel multiplier (1.0 = the exact reference architecture;
@@ -87,6 +96,7 @@ class MARCONet(Precision, nn.Module):
         set_compute_dtype(self, dtype)
         self.eval()
         self.device = device
+        self.restores = self.rows = self.slots = 0
 
     def _nchw_input(self, lq: torch.Tensor) -> torch.Tensor:
         """lq (B, 32, 512, 3) NHWC -> the nets' input: NCHW channels_last
@@ -134,18 +144,27 @@ class MARCONet(Precision, nn.Module):
                              f"{tuple(lq.shape)}")
         if locs.shape != (b, 2 * n) or char_mask.shape != (b, n):
             raise ValueError("locs must be (B, 2N) and char_mask (B, N)")
+        self.restores += 1
+        self.rows += b
+        self.slots += b * n
         dev = self.device
-        x = self._nchw_input(lq)
-        labels = labels.to(device=dev, dtype=torch.long)
-        locs = locs.to(device=dev, dtype=torch.float32)
-        char_mask = char_mask.to(device=dev, dtype=torch.float32)
+        cuda = dev.type == "cuda"
+        with span("pipeline/restore", cuda):
+            x = self._nchw_input(lq)
+            labels = labels.to(device=dev, dtype=torch.long)
+            locs = locs.to(device=dev, dtype=torch.float32)
+            char_mask = char_mask.to(device=dev, dtype=torch.float32)
 
-        logits, pred_locs, w = self.encoder(x)
-        safe_labels = torch.where(char_mask > 0, labels, BLANK_INDEX)
-        pri = self.generate_priors(w, safe_labels)
-        sr = self.super_resolve(x, pri.feat64, pri.feat32, locs, char_mask)
-        priors = pri.image.permute(0, 2, 3, 1).reshape(
-            b, n, *pri.image.shape[2:], 3)
+            with span("pipeline/encoder", cuda):
+                logits, pred_locs, w = self.encoder(x)
+            safe_labels = torch.where(char_mask > 0, labels, BLANK_INDEX)
+            with span("pipeline/prior", cuda):
+                pri = self.generate_priors(w, safe_labels)
+            with span("pipeline/srnet", cuda):
+                sr = self.super_resolve(x, pri.feat64, pri.feat32, locs,
+                                        char_mask)
+            priors = pri.image.permute(0, 2, 3, 1).reshape(
+                b, n, *pri.image.shape[2:], 3)
         return RestoreOutput(sr.permute(0, 2, 3, 1), priors, logits,
                              pred_locs, w)
 

@@ -13,6 +13,16 @@ uint8 packing are queued, its device -> host copy goes into pinned memory
 without blocking, and only then does the host wait for chunk k - 1 and
 prepare chunk k + 1 (resizes, stacking, a non-blocking upload) while the
 card runs chunk k.
+
+Under ``torch.profiler`` the server marks its work as spans
+(``utils/tracing.py``): ``serve/page`` around a page, ``serve/lines``
+around a :meth:`TextPageRestorer.restore_lines` call and, inside it,
+``serve/prep`` (checks, host prep, the upload), ``serve/launch`` (a
+chunk's restore, packing and copies enqueued), ``serve/wait`` (the host
+blocked on the card) and ``serve/drain`` (the results built on the host).
+Counts kept on every call, profiler or not: ``calls``, ``chunks``,
+``rows`` (padding included) and ``rows_real`` (requests), ``slots`` (rows
+times the chunk's slot bucket) and ``slots_real`` (characters restored).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from marconet_tpu_torch.utils.image import (
     normalized_locs_from_boxes,
     preprocess_line,
 )
+from marconet_tpu_torch.utils.tracing import settle, span
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
 SLOT_BUCKETS = (4, 8, MAX_CHARS)
@@ -107,6 +118,9 @@ class TextPageRestorer:
         self.net = net
         self.frontend = frontend
         self.buckets = tuple(sorted(buckets))
+        self.calls = self.chunks = 0
+        self.rows = self.rows_real = 0
+        self.slots = self.slots_real = 0
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -193,49 +207,69 @@ class TextPageRestorer:
         builds its results and prepares chunk k + 1 while the card runs
         chunk k.
         """
+        self.calls += 1
         n = len(requests)
         if n == 0:
             return []
-        for req in requests:
-            self._check(req)
-        b = self._bucket(n)
         cuda = self.net.device.type == "cuda"
         results: List[LineResult] = []
 
         def drain(done, sr, priors, chunk, reqs):
-            if done is not None:
-                done.synchronize()
-            sr, priors = sr.numpy(), priors.numpy()
-            for i, req in enumerate(reqs):
-                labels = chunk.labels[i]
-                results.append(LineResult(
-                    sr=sr[i, :, :chunk.show_widths[i]].copy(),
-                    text=req.text if req.text is not None else
-                    text_from_labels(labels),
-                    priors=priors[i, :len(labels)].copy()))
+            with span("serve/wait"):
+                if done is not None:
+                    done.synchronize()
+            with span("serve/drain"):
+                sr, priors = sr.numpy(), priors.numpy()
+                for i, req in enumerate(reqs):
+                    labels = chunk.labels[i]
+                    results.append(LineResult(
+                        sr=sr[i, :, :chunk.show_widths[i]].copy(),
+                        text=req.text if req.text is not None else
+                        text_from_labels(labels),
+                        priors=priors[i, :len(labels)].copy()))
 
-        starts = range(0, n, b)
-        chunk = self._chunk(requests[0:b], b)
-        pending = None
-        with torch.inference_mode():
-            for k, start in enumerate(starts):
-                out = self.net.restore(*chunk.inputs)
-                sr, priors = _pack_uint8(out.sr), _pack_uint8(out.priors)
-                done = None
-                if cuda:
-                    sr = _to_pinned(sr)
-                    priors = _to_pinned(priors)
-                    done = torch.cuda.Event()
-                    done.record()
-                if pending is not None:
-                    drain(*pending)
-                pending = (done, sr, priors, chunk,
-                           requests[start:start + b])
-                if k + 1 < len(starts):
-                    nxt = starts[k + 1]
-                    chunk = self._chunk(requests[nxt:nxt + b], b)
-        drain(*pending)
+        with span("serve/lines"):
+            with span("serve/prep"):
+                for req in requests:
+                    self._check(req)
+                b = self._bucket(n)
+                chunk = self._chunk(requests[0:b], b)
+            starts = range(0, n, b)
+            pending = None
+            with torch.inference_mode():
+                for k, start in enumerate(starts):
+                    with span("serve/launch"):
+                        out = self.net.restore(*chunk.inputs)
+                        sr = _pack_uint8(out.sr)
+                        priors = _pack_uint8(out.priors)
+                        done = None
+                        if cuda:
+                            sr = _to_pinned(sr)
+                            priors = _to_pinned(priors)
+                            done = torch.cuda.Event()
+                            done.record()
+                    self._count(chunk)
+                    if pending is not None:
+                        drain(*pending)
+                    pending = (done, sr, priors, chunk,
+                               requests[start:start + b])
+                    if k + 1 < len(starts):
+                        nxt = starts[k + 1]
+                        with span("serve/prep"):
+                            chunk = self._chunk(requests[nxt:nxt + b], b)
+            drain(*pending)
+        # the last wait covered every device span this call recorded
+        settle()
         return results
+
+    def _count(self, chunk: _Chunk) -> None:
+        """Add a restored chunk to the counts, from host-side shapes."""
+        rows, slots = chunk.inputs[1].shape
+        self.chunks += 1
+        self.rows += rows
+        self.rows_real += len(chunk.labels)
+        self.slots += rows * slots
+        self.slots_real += sum(len(l) for l in chunk.labels)
 
     def _page_requests(self, page_rgb: np.ndarray,
                        line_boxes: Sequence[Sequence[int]],
@@ -319,19 +353,21 @@ class TextPageRestorer:
             known text among segments. Without them, split lines fall back
             to the front-end.
         """
-        requests, groups = self._page_requests(page_rgb, line_boxes,
-                                               texts, char_boxes)
-        seg_results = self.restore_lines(requests)
-        out: List[LineResult] = []
-        for idxs in groups:
-            parts = [seg_results[j] for j in idxs]
-            if len(parts) == 1:
-                out.append(parts[0])
-                continue
-            out.append(LineResult(
-                sr=np.concatenate([p.sr for p in parts], axis=1),
-                text="".join(p.text for p in parts),
-                priors=np.concatenate([p.priors for p in parts], axis=0)))
+        with span("serve/page"):
+            requests, groups = self._page_requests(page_rgb, line_boxes,
+                                                   texts, char_boxes)
+            seg_results = self.restore_lines(requests)
+            out: List[LineResult] = []
+            for idxs in groups:
+                parts = [seg_results[j] for j in idxs]
+                if len(parts) == 1:
+                    out.append(parts[0])
+                    continue
+                out.append(LineResult(
+                    sr=np.concatenate([p.sr for p in parts], axis=1),
+                    text="".join(p.text for p in parts),
+                    priors=np.concatenate([p.priors for p in parts],
+                                          axis=0)))
         return out
 
 

@@ -1,0 +1,9 @@
+"""The window's idle device time that falls in the self time of the
+pipeline's ``pipeline/*`` spans (the host enqueuing the restore), over the
+window, in %."""
+
+from port_bench import span_readers
+
+
+def read(rec):
+    return span_readers.idle_in_pct(rec, "pipeline/")

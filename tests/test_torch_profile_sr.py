@@ -1,10 +1,12 @@
 """The port's restore profiler (``marconet_tpu_torch.cli.profile_sr``) on
 the CPU: a reduced-width bf16 ``MARCONet`` (width 0.0625) through
-``profile_restore`` writes a Chrome trace that parses, with a span of
-every traced restore; the inputs are the JAX tool's
+``profile_restore`` writes a Chrome trace that parses, with the
+pipeline's spans of every traced restore; the CLI's net computes in bf16
+over f32 parameters; the inputs are the JAX tool's
 (``tools/profile_sr.py``). On the card the same function traces the
 kernels (``chip_smoke.py`` phase 15)."""
 
+import functools
 import json
 
 import numpy as np
@@ -23,7 +25,23 @@ def test_trace_parses(tmp_path):
     spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     assert spans and all("dur" in e for e in spans)
     names = [e["name"] for e in spans]
-    assert names.count("marconet/restore") == 2
+    for span in ("restore", "encoder", "prior", "srnet"):
+        assert names.count(f"pipeline/{span}") == 2
+
+
+def test_profiled_net_keeps_f32_parameters(tmp_path, monkeypatch):
+    """The CLI profiles what ``serve_demo`` runs: bf16 compute over f32
+    parameters (the JAX tool's ``MARCONet(dtype=jnp.bfloat16)`` over
+    ``net.init``'s f32 parameters)."""
+    seen = []
+    monkeypatch.setattr(profile_sr, "MARCONet",
+                        functools.partial(MARCONet, width=0.0625))
+    monkeypatch.setattr(profile_sr, "profile_restore",
+                        lambda net, *args: seen.append(net))
+    profile_sr.main(["--device", "cpu", "-o", str(tmp_path)])
+    (net,) = seen
+    assert net.dtype == torch.bfloat16
+    assert {p.dtype for p in net.parameters()} == {torch.float32}
 
 
 def test_inputs_are_the_jax_tools():
