@@ -1100,9 +1100,10 @@ def _batch_sensitivity() -> None:
 
 def _page_invariance(page, line_boxes, texts, char_boxes) -> None:
     """The page's lines of up to 8 characters in f32 (TF32 off), default
-    buckets (one chunk of 64 at 8 slots) against bucket 16: within
-    ``PAGE_INVARIANCE_MAX`` levels on at most ``PAGE_INVARIANCE_SHARE`` of
-    the pixels. (64 lines at 16 slots in f32 do not fit in 80 GB.)"""
+    buckets (one unpadded chunk of bucket 64 at 8 slots) against bucket
+    16: within ``PAGE_INVARIANCE_MAX`` levels on at most
+    ``PAGE_INVARIANCE_SHARE`` of the pixels. (64 lines at 16 slots in f32
+    do not fit in 80 GB.)"""
     keep = [i for i, t in enumerate(texts) if len(t) <= 8]
     line_boxes, texts, char_boxes = ([seq[i] for i in keep] for seq in
                                      (line_boxes, texts, char_boxes))
@@ -1172,7 +1173,7 @@ def phase_page(smi: str) -> dict:
     chunk_ms, slots = [], []
     for c, start in enumerate(range(0, n_seg, 16)):
         reqs = segments[start:start + 16]
-        chunk = lines16._chunk(reqs, 16)
+        chunk = lines16._chunk(reqs)
         slots.append(chunk.inputs[1].shape[1])
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
@@ -1200,7 +1201,7 @@ def phase_page(smi: str) -> dict:
         f"{levels} uint8 levels, {share:.3e} of pixels differ")
 
     # no host synchronisation inside restore (it would serialise the loop)
-    chunk = lines16._chunk(segments[:16], 16)
+    chunk = lines16._chunk(segments[:16])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -1220,9 +1221,9 @@ def phase_page(smi: str) -> dict:
     prep = []
     make_chunk = lines16._chunk
 
-    def timed_chunk(reqs, b):
+    def timed_chunk(reqs):
         t0 = time.perf_counter()
-        c = make_chunk(reqs, b)
+        c = make_chunk(reqs)
         prep.append(time.perf_counter() - t0)
         return c
 

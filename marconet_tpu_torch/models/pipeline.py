@@ -68,7 +68,7 @@ class MARCONet(Precision, nn.Module):
     as the JAX tools and every CLI of the port do.
 
     Counts kept on every :meth:`restore`, from shapes alone: ``restores``,
-    ``rows`` (lines, padding included) and ``slots`` (rows times the
+    ``rows`` (the batch's lines, as given) and ``slots`` (rows times the
     character slots).
 
     Args:

@@ -3,10 +3,12 @@
 Counterpart of ``marconet_tpu/serve.py``. The reference restores one line
 per Python iteration (``test_sr.py:77``) and tells users to crop long
 lines themselves (``test_sr.py:104-110``). :class:`TextPageRestorer`
-batches any collection of line crops into a few batch-size buckets and
-character-slot buckets, splits over-wide lines into <= 512 px segments
-and stitches them back, so a page is a handful of ``MARCONet.restore``
-calls whatever its layout.
+cuts any collection of line crops into chunks by batch-size buckets,
+restores each chunk at the rows it holds with the fewest character-slot
+buckets that fit, splits over-wide lines into <= 512 px segments and
+stitches them back, so a page is a handful of ``MARCONet.restore`` calls
+whatever its layout. Unlike the JAX package, which pads a chunk to its
+bucket for XLA's static shapes, the port runs eagerly and pads no chunk.
 
 On the GPU the chunk loop keeps the card busy: chunk k's restore and
 uint8 packing are queued, its device -> host copy goes into pinned memory
@@ -21,8 +23,9 @@ around a :meth:`TextPageRestorer.restore_lines` call and, inside it,
 chunk's restore, packing and copies enqueued), ``serve/wait`` (the host
 blocked on the card) and ``serve/drain`` (the results built on the host).
 Counts kept on every call, profiler or not: ``calls``, ``chunks``,
-``rows`` (padding included) and ``rows_real`` (requests), ``slots`` (rows
-times the chunk's slot bucket) and ``slots_real`` (characters restored).
+``rows`` (rows restored) and ``rows_real`` (requests), equal since no
+chunk is padded, ``slots`` (rows times the chunk's slot bucket) and
+``slots_real`` (characters restored).
 """
 
 from __future__ import annotations
@@ -109,8 +112,11 @@ class TextPageRestorer:
       frontend: optional callable ``image -> detection`` whose result has
         ``text`` (str) and ``locs`` ((2N,) normalized), used for requests
         without text.
-      buckets: batch sizes; a request list runs in chunks of the smallest
-        bucket that holds it (the largest when none does).
+      buckets: batch sizes that cut a request list into chunks: the
+        list runs in chunks of the smallest bucket that holds it (the
+        largest when none does), so the largest bucket is the most rows a
+        chunk holds. A chunk is not padded to its bucket: it restores at
+        the rows it holds.
     """
 
     def __init__(self, net, frontend=None,
@@ -166,24 +172,19 @@ class TextPageRestorer:
         mask[:n] = 1.0
         return lq[0], labels, locs, mask, show, n
 
-    def _chunk(self, reqs: Sequence[LineRequest], b: int) -> _Chunk:
-        """Prepare ``reqs`` as one batch of ``b`` rows (zero-padded), with
-        the fewest character slots (4, 8 or 16) that hold its longest
-        line. Masked slots are inert, so short lines skip their compute.
-        The inputs are host tensors; on a CUDA net they are pinned and
+    def _chunk(self, reqs: Sequence[LineRequest]) -> _Chunk:
+        """Prepare ``reqs`` as one batch of ``len(reqs)`` rows, with the
+        fewest character slots (4, 8 or 16) that hold its longest line.
+        Masked slots are inert, so short lines skip their compute. The
+        inputs are host tensors; on a CUDA net they are pinned and
         uploaded without blocking."""
         prepared = [self._prepare(r) for r in reqs]
-        pad = b - len(prepared)
         max_chars = max(p[5] for p in prepared)
         n_slots = next(s for s in SLOT_BUCKETS if s >= max_chars)
-        lq = np.stack([p[0] for p in prepared]
-                      + [np.zeros_like(prepared[0][0])] * pad)
-        labels = np.stack([p[1][:n_slots] for p in prepared]
-                          + [np.full(n_slots, BLANK_INDEX, np.int64)] * pad)
-        locs = np.stack([p[2][:2 * n_slots] for p in prepared]
-                        + [np.zeros(2 * n_slots, np.float32)] * pad)
-        mask = np.stack([p[3][:n_slots] for p in prepared]
-                        + [np.zeros(n_slots, np.float32)] * pad)
+        lq = np.stack([p[0] for p in prepared])
+        labels = np.stack([p[1][:n_slots] for p in prepared])
+        locs = np.stack([p[2][:2 * n_slots] for p in prepared])
+        mask = np.stack([p[3][:n_slots] for p in prepared])
         inputs = tuple(torch.from_numpy(a) for a in (lq, labels, locs, mask))
         dev = self.net.device
         if dev.type == "cuda":
@@ -194,7 +195,8 @@ class TextPageRestorer:
 
     def restore_lines(self, requests: Sequence[LineRequest]
                       ) -> List[LineResult]:
-        """Restore a list of lines, in order, in chunks of one bucket size.
+        """Restore a list of lines, in order, in chunks of one bucket size
+        (the last chunk holds what is left, unpadded).
 
         Every request is checked before the first chunk runs. The
         character-slot count is bucketed too (4 / 8 / 16): masked extra
@@ -233,7 +235,7 @@ class TextPageRestorer:
                 for req in requests:
                     self._check(req)
                 b = self._bucket(n)
-                chunk = self._chunk(requests[0:b], b)
+                chunk = self._chunk(requests[0:b])
             starts = range(0, n, b)
             pending = None
             with torch.inference_mode():
@@ -256,7 +258,7 @@ class TextPageRestorer:
                     if k + 1 < len(starts):
                         nxt = starts[k + 1]
                         with span("serve/prep"):
-                            chunk = self._chunk(requests[nxt:nxt + b], b)
+                            chunk = self._chunk(requests[nxt:nxt + b])
             drain(*pending)
         # the last wait covered every device span this call recorded
         settle()

@@ -103,7 +103,7 @@ def test_restore_page_matches_jax(nets, no_ipp):
 
 def test_chunking_invariance(nets):
     """Five requests in chunks of 2 (three double-buffered chunks, the last
-    padded) and in one chunk of 8 give the same results in the same order
+    of one row) and in one chunk of 8 give the same results in the same order
     (batch rows are independent; the CPU's f32 sums may differ in order
     by batch size, so a pixel may move by one level on < 1e-3 of them,
     as ``tests/test_serve.py`` allows)."""
@@ -118,6 +118,51 @@ def test_chunking_invariance(nets):
     for c, w in zip(chunked, whole):
         assert c.text == w.text and c.sr.shape == w.sr.shape
         for a, b in ((c.sr, w.sr), (c.priors, w.priors)):
+            levels, share = _levels(a, b)
+            assert levels <= 1 and share < 1e-3
+
+
+class _SpyNet:
+    """The net as the page server sees it, recording the rows of each
+    ``restore`` call."""
+
+    def __init__(self, net):
+        self.net, self.device, self.rows = net, net.device, []
+
+    def restore(self, lq, labels, locs, char_mask):
+        rows = {int(t.shape[0]) for t in (lq, labels, locs, char_mask)}
+        assert len(rows) == 1, rows
+        self.rows += rows
+        return self.net.restore(lq, labels, locs, char_mask)
+
+
+@pytest.mark.parametrize("n, buckets, want_rows, whole_buckets", [
+    (17, serve.DEFAULT_BUCKETS, [17], (32,)),
+    (5, (4,), [4, 1], (8,)),
+])
+def test_chunks_restore_at_their_rows(nets, n, buckets, want_rows,
+                                      whole_buckets):
+    """A chunk restores at the rows it holds, not padded to its bucket:
+    17 requests under the default buckets are one call of 17 rows, 5 at
+    ``buckets=(4,)`` calls of 4 and 1. The results equal one chunk's
+    within ``test_chunking_invariance``'s tolerance, in the same order."""
+    _, _, net = nets
+    rng = np.random.default_rng(5)
+    reqs = [serve.LineRequest(
+        image=rng.integers(0, 255, (32, 32 * k, 3)).astype(np.uint8),
+        text="ABCDEFGH"[:k]) for k in rng.integers(1, 9, n)]
+    spy, whole_spy = _SpyNet(net), _SpyNet(net)
+    restorer = serve.TextPageRestorer(spy, buckets=buckets)
+    got = restorer.restore_lines(reqs)
+    whole = serve.TextPageRestorer(whole_spy, buckets=whole_buckets
+                                   ).restore_lines(reqs)
+    assert spy.rows == want_rows and whole_spy.rows == [n]
+    assert restorer.rows == restorer.rows_real == n
+    assert len(got) == len(whole) == n
+    for g, w, r in zip(got, whole, reqs):
+        assert g.text == w.text == r.text and g.sr.shape == w.sr.shape
+        assert g.priors.shape == w.priors.shape == (len(r.text), 128, 128, 3)
+        for a, b in ((g.sr, w.sr), (g.priors, w.priors)):
             levels, share = _levels(a, b)
             assert levels <= 1 and share < 1e-3
 

@@ -99,18 +99,19 @@ def test_spans_and_their_nesting(traced):
 def test_counts_equal_hand_counts(traced, net):
     restorer, _, _ = traced
     # chunk 1: 4 lines up to 9 characters, slot bucket 16; chunk 2: one
-    # line of 4 characters, slot bucket 4, padded to 4 rows
-    want = {"calls": 1, "chunks": 2, "rows": 8, "rows_real": 5,
-            "slots": 4 * 16 + 4 * 4, "slots_real": sum(map(len, TEXTS))}
+    # line of 4 characters, slot bucket 4, restored at its 1 row (no
+    # chunk is padded to its bucket)
+    want = {"calls": 1, "chunks": 2, "rows": 5, "rows_real": 5,
+            "slots": 4 * 16 + 1 * 4, "slots_real": sum(map(len, TEXTS))}
     assert {k: getattr(restorer, k) for k in want} == want
     before = (net.restores, net.rows, net.slots)
     restorer.restore_lines([serve.LineRequest(
         image=np.zeros((32, 96, 3), np.uint8), text="ABC")])
     assert restorer.calls == 2 and restorer.chunks == 3
-    assert (restorer.rows, restorer.rows_real) == (12, 6)
-    assert (restorer.slots, restorer.slots_real) == (96, 26)
+    assert (restorer.rows, restorer.rows_real) == (6, 6)
+    assert (restorer.slots, restorer.slots_real) == (72, 26)
     assert (net.restores, net.rows, net.slots) == (
-        before[0] + 1, before[1] + 4, before[2] + 16)
+        before[0] + 1, before[1] + 1, before[2] + 4)
     restorer.restore_lines([])
     assert restorer.calls == 3 and restorer.chunks == 3
 
