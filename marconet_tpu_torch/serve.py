@@ -13,8 +13,10 @@ bucket for XLA's static shapes, the port runs eagerly and pads no chunk.
 On the GPU the chunk loop keeps the card busy: chunk k's restore and
 uint8 packing are queued, its device -> host copy goes into pinned memory
 without blocking, and only then does the host wait for chunk k - 1 and
-prepare chunk k + 1 (resizes, stacking, a non-blocking upload) while the
-card runs chunk k.
+prepare chunk k + 1 (the resizes to height 32, stacking, a non-blocking
+upload) while the card runs chunk k. A line's display width, where its
+x4 output is cropped, is computed from its shape (``show_width``),
+without a resize.
 
 Under ``torch.profiler`` the server marks its work as spans
 (``utils/tracing.py``): ``serve/page`` around a page, ``serve/lines``
@@ -45,9 +47,10 @@ from marconet_tpu_torch.models.encoder import MAX_CHARS
 from marconet_tpu_torch.utils.image import (
     LQ_HEIGHT,
     LQ_WIDTH,
+    lq_input,
     lq_width,
     normalized_locs_from_boxes,
-    preprocess_line,
+    show_width,
 )
 from marconet_tpu_torch.utils.tracing import settle, span
 
@@ -96,7 +99,9 @@ def split_wide_line(img: np.ndarray, max_w: int = LQ_WIDTH
 @dataclass
 class _Chunk:
     """One batch of prepared lines: the restore inputs (host or device
-    tensors) and, per line, its display width and character labels."""
+    tensors) and, per line, its display width (``show_width`` of its
+    shape: the columns of its x4 output that hold the line) and character
+    labels."""
 
     inputs: Tuple[torch.Tensor, ...]      # lq, labels, locs, char_mask
     show_widths: List[int]
@@ -148,7 +153,7 @@ class TextPageRestorer:
 
     def _prepare(self, req: LineRequest):
         """Model inputs of one request that passed :meth:`_check`."""
-        lq, show, _ = preprocess_line(req.image)
+        lq = lq_input(req.image)
         if req.text is not None:
             labels_list = [l for l in labels_from_text(req.text)
                            if l >= 0][:MAX_CHARS]
@@ -170,7 +175,8 @@ class TextPageRestorer:
                 locs_vec[:2 * MAX_CHARS]
         mask = np.zeros(MAX_CHARS, np.float32)
         mask[:n] = 1.0
-        return lq[0], labels, locs, mask, show, n
+        return (lq[0], labels, locs, mask,
+                show_width(*req.image.shape[:2]), n)
 
     def _chunk(self, reqs: Sequence[LineRequest]) -> _Chunk:
         """Prepare ``reqs`` as one batch of ``len(reqs)`` rows, with the
@@ -190,7 +196,7 @@ class TextPageRestorer:
         if dev.type == "cuda":
             inputs = tuple(t.pin_memory().to(dev, non_blocking=True)
                            for t in inputs)
-        return _Chunk(inputs, [p[4].shape[1] for p in prepared],
+        return _Chunk(inputs, [p[4] for p in prepared],
                       [p[1][:p[5]] for p in prepared])
 
     def restore_lines(self, requests: Sequence[LineRequest]

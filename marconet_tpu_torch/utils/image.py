@@ -495,30 +495,49 @@ def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     return acc.reshape(img.shape)
 
 
-def preprocess_line(img_rgb: np.ndarray):
-    """RGB uint8 (H, W, 3) -> model input + display copies.
-
-    Returns (lq (1, 32, 512, 3) float32 in [-1, 1], show_lq (128, 4W', 3)
-    uint8, ori_lq_width) or None when the line is wider than 512 at height
-    32 (the reference warns and skips, ``test_sr.py:104-110``).
-    """
-    h = img_rgb.shape[0]
-    show = resize_cubic_u8(img_rgb, SHOW_HEIGHT / h)
-    lq = resize_cubic_u8(img_rgb, LQ_HEIGHT / h)
+def lq_input(img_rgb: np.ndarray) -> np.ndarray:
+    """RGB uint8 (H, W, 3) -> the model input: the line resized to height
+    32 (cubic), at the left of a zero 32 x 512 canvas, scaled to [-1, 1];
+    (1, 32, 512, 3) float32. Raises ``ValueError`` for a line wider than
+    512 at height 32."""
+    lq = resize_cubic_u8(img_rgb, LQ_HEIGHT / img_rgb.shape[0])
     ori_w = lq.shape[1]
     if ori_w > LQ_WIDTH:
-        return None
+        raise ValueError("line wider than 512 after h=32 resize")
     canvas = np.zeros((LQ_HEIGHT, LQ_WIDTH, 3), lq.dtype)
     canvas[:, :ori_w] = lq
     x = canvas.astype(np.float32) / 255.0
     x = (x - 0.5) / 0.5
-    return x[None], show, ori_w
+    return x[None]
+
+
+def preprocess_line(img_rgb: np.ndarray):
+    """RGB uint8 (H, W, 3) -> model input + display copies.
+
+    Returns (lq (1, 32, 512, 3) float32 in [-1, 1] (:func:`lq_input`),
+    show_lq (128, 4W', 3) uint8, ori_lq_width) or None when the line is
+    wider than 512 at height 32 (the reference warns and skips,
+    ``test_sr.py:104-110``).
+    """
+    h, w = img_rgb.shape[:2]
+    ori_w = lq_width(h, w)
+    if ori_w > LQ_WIDTH:
+        return None
+    show = resize_cubic_u8(img_rgb, SHOW_HEIGHT / h)
+    return lq_input(img_rgb), show, ori_w
 
 
 def lq_width(height: int, width: int) -> int:
     """The width :func:`preprocess_line` resizes an ``height`` x ``width``
     line to (``cvRound(width * 32 / height)``), without resizing."""
     return int(round(width * (LQ_HEIGHT / height)))
+
+
+def show_width(height: int, width: int) -> int:
+    """The width of :func:`preprocess_line`'s display copy of an
+    ``height`` x ``width`` line (``cvRound(width * 128 / height)``, as
+    :func:`resize_cubic_u8` sizes it), without resizing."""
+    return int(round(width * (SHOW_HEIGHT / height)))
 
 
 def postprocess_sr(sr: np.ndarray, show_width: int) -> np.ndarray:

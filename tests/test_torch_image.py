@@ -52,13 +52,15 @@ def _as_uint8(lq: np.ndarray) -> np.ndarray:
 def test_preprocess_line_byte_exact(no_ipp):
     """60 random lines: the LQ canvas (as uint8 and normalised), the
     display copy and the width equal the JAX package's cv2 path; lines
-    too wide give None on both sides."""
+    too wide give None on both sides, and ``lq_input`` refuses them."""
     n_wide = 0
     for img in _lines(60, seed=0):
         want = jimage.preprocess_line(img)
         got = timage.preprocess_line(img)
         if want is None:
             assert got is None
+            with pytest.raises(ValueError, match="wider than 512"):
+                timage.lq_input(img)
             n_wide += 1
             continue
         lq, show, ori_w = got
@@ -69,6 +71,34 @@ def test_preprocess_line_byte_exact(no_ipp):
         assert show.dtype == np.uint8
         np.testing.assert_array_equal(show, want[1])
     assert 5 <= n_wide <= 55
+
+
+# (height, widths): odd widths at height 64 and widths 4 mod 8 at 256 put
+# the LQ width on .5, odd widths at 256 the display width; the last width
+# of each height is the widest that fits 512 at height 32 (1025 and 4100
+# exactly on 512.5, which rounds to 512)
+_SHOW_CASES = {24: (1, 2, 5, 17, 100, 383, 384),
+               32: (1, 3, 33, 100, 511, 512),
+               48: (1, 2, 7, 101, 767, 768),
+               64: (1, 3, 17, 101, 1023, 1025),
+               96: (1, 2, 5, 299, 1536, 1537),
+               256: (1, 4, 12, 101, 4095, 4100)}
+
+
+@pytest.mark.parametrize("h, w", [(h, w) for h, ws in _SHOW_CASES.items()
+                                  for w in ws])
+def test_show_width_and_lq_input(h, w):
+    """``show_width`` is the width of the display copy, without making it,
+    and ``lq_input`` is ``preprocess_line``'s model input to the byte."""
+    img = np.random.default_rng(h * 10_000 + w).integers(
+        0, 256, (h, w, 3), dtype=np.uint8)
+    lq, show, ori_w = timage.preprocess_line(img)
+    want = timage.resize_cubic_u8(img, timage.SHOW_HEIGHT / h).shape[1]
+    assert timage.show_width(h, w) == want == show.shape[1]
+    assert ori_w == timage.lq_width(h, w) <= timage.LQ_WIDTH
+    got = timage.lq_input(img)
+    assert got.dtype == lq.dtype and got.shape == (1, 32, 512, 3)
+    assert got.tobytes() == lq.tobytes()
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])

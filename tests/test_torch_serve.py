@@ -29,6 +29,7 @@ from marconet_tpu_torch.convert import (
 )
 from marconet_tpu_torch.models.pipeline import MARCONet
 from marconet_tpu_torch.ops import resize
+from marconet_tpu_torch.utils import image as timage
 
 torch.set_num_threads(1)
 
@@ -120,6 +121,31 @@ def test_chunking_invariance(nets):
         for a, b in ((c.sr, w.sr), (c.priors, w.priors)):
             levels, share = _levels(a, b)
             assert levels <= 1 and share < 1e-3
+
+
+def test_prep_resizes_once_to_lq_height(nets, monkeypatch):
+    """The page server resizes each request once, to height 32, and makes
+    no 128-high display copy: a line's ``sr`` is cropped to
+    ``show_width`` of its shape."""
+    _, _, net = nets
+    cubic = timage.resize_cubic_u8
+    heights = []
+
+    def spy(img, factor=None, size=None):
+        out = cubic(img, factor, size)
+        heights.append(out.shape[0])
+        return out
+
+    monkeypatch.setattr(timage, "resize_cubic_u8", spy)
+    rng = np.random.default_rng(6)
+    shapes = [(32, 100), (48, 301), (32, 129), (48, 150)]
+    reqs = [serve.LineRequest(
+        image=rng.integers(0, 255, (h, w, 3)).astype(np.uint8), text="AB")
+        for h, w in shapes]
+    out = serve.TextPageRestorer(net, buckets=(2,)).restore_lines(reqs)
+    assert heights == [timage.LQ_HEIGHT] * len(reqs)
+    assert [r.sr.shape for r in out] == [
+        (128, timage.show_width(h, w), 3) for h, w in shapes]
 
 
 class _SpyNet:
