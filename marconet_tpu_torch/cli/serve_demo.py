@@ -1,6 +1,6 @@
 """Service-mode demo (counterpart of ``tools/serve_demo.py``): the page
-server (``TextPageRestorer``: segment splitting, batch and slot buckets)
-over a directory of line crops, end to end, with lines/s.
+server (``TextPageRestorer``: segment splitting, a row cap and slot
+buckets) over a directory of line crops, end to end, with lines/s.
 
 With ``-m`` the text comes from the file name after its last ``_``;
 otherwise the YOLO + OCR front-end reads it when its weights are under
@@ -73,6 +73,7 @@ def serve_dir(net: MARCONet, frontend, test_path: str, save_path: str,
     t0 = time.perf_counter()
     server.restore_lines(requests)           # warm-up included
     first = time.perf_counter() - t0
+    chunks = server.chunks
     t0 = time.perf_counter()
     results = server.restore_lines(requests)
     warm = time.perf_counter() - t0
@@ -86,7 +87,7 @@ def serve_dir(net: MARCONet, frontend, test_path: str, save_path: str,
           f"(incl. warm-up), warm {warm:.2f}s = {n / warm:.1f} lines/s")
     return {"results": results, "names": names, "first_s": first,
             "warm_s": warm, "lines_per_s": n / warm,
-            "chunks": -(-n // server._bucket(n))}
+            "chunks": server.chunks - chunks}
 
 
 def main(argv=None) -> dict:

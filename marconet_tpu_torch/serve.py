@@ -3,12 +3,13 @@
 Counterpart of ``marconet_tpu/serve.py``. The reference restores one line
 per Python iteration (``test_sr.py:77``) and tells users to crop long
 lines themselves (``test_sr.py:104-110``). :class:`TextPageRestorer`
-cuts any collection of line crops into chunks by batch-size buckets,
-restores each chunk at the rows it holds with the fewest character-slot
-buckets that fit, splits over-wide lines into <= 512 px segments and
-stitches them back, so a page is a handful of ``MARCONet.restore`` calls
-whatever its layout. Unlike the JAX package, which pads a chunk to its
-bucket for XLA's static shapes, the port runs eagerly and pads no chunk.
+cuts any collection of line crops into chunks of at most its row cap
+(64 by default), restores each chunk at the rows it holds with the
+fewest character-slot buckets that fit, splits over-wide lines into
+<= 512 px segments and stitches them back, so a page is a handful of
+``MARCONet.restore`` calls whatever its layout. Unlike the JAX package,
+which pads a chunk to its bucket for XLA's static shapes, the port runs
+eagerly and pads no chunk.
 
 On the GPU the chunk loop keeps the card busy: chunk k's restore and
 uint8 packing are queued, its device -> host copy goes into pinned memory
@@ -54,7 +55,9 @@ from marconet_tpu_torch.utils.image import (
 )
 from marconet_tpu_torch.utils.tracing import settle, span
 
-DEFAULT_BUCKETS = (1, 4, 16, 64)
+# the row cap of a chunk; ``buckets=`` takes a sequence, of which the
+# largest is the cap
+DEFAULT_BUCKETS = (64,)
 SLOT_BUCKETS = (4, 8, MAX_CHARS)
 
 
@@ -109,7 +112,7 @@ class _Chunk:
 
 
 class TextPageRestorer:
-    """Bucketed batch restoration over a ``MARCONet``.
+    """Chunked batch restoration over a ``MARCONet``.
 
     Args:
       net: a ``marconet_tpu_torch.models.pipeline.MARCONet`` (or any
@@ -117,27 +120,21 @@ class TextPageRestorer:
       frontend: optional callable ``image -> detection`` whose result has
         ``text`` (str) and ``locs`` ((2N,) normalized), used for requests
         without text.
-      buckets: batch sizes that cut a request list into chunks: the
-        list runs in chunks of the smallest bucket that holds it (the
-        largest when none does), so the largest bucket is the most rows a
-        chunk holds. A chunk is not padded to its bucket: it restores at
-        the rows it holds.
+      buckets: batch sizes, of which only the largest acts: it caps the
+        rows of a chunk. A request list runs as one chunk when it has no
+        more rows than that, else in chunks of that many rows and a last
+        one of the rest. No chunk is padded: each restores at the rows it
+        holds.
     """
 
     def __init__(self, net, frontend=None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS):
         self.net = net
         self.frontend = frontend
-        self.buckets = tuple(sorted(buckets))
+        self.max_rows = max(buckets)
         self.calls = self.chunks = 0
         self.rows = self.rows_real = 0
         self.slots = self.slots_real = 0
-
-    def _bucket(self, n: int) -> int:
-        for b in self.buckets:
-            if n <= b:
-                return b
-        return self.buckets[-1]
 
     def _check(self, req: LineRequest) -> None:
         """Raise for a request that cannot be restored, with the JAX
@@ -201,8 +198,8 @@ class TextPageRestorer:
 
     def restore_lines(self, requests: Sequence[LineRequest]
                       ) -> List[LineResult]:
-        """Restore a list of lines, in order, in chunks of one bucket size
-        (the last chunk holds what is left, unpadded).
+        """Restore a list of lines, in order, in chunks of at most
+        ``max_rows`` rows (the last chunk holds what is left, unpadded).
 
         Every request is checked before the first chunk runs. The
         character-slot count is bucketed too (4 / 8 / 16): masked extra
@@ -240,7 +237,7 @@ class TextPageRestorer:
             with span("serve/prep"):
                 for req in requests:
                     self._check(req)
-                b = self._bucket(n)
+                b = min(n, self.max_rows)
                 chunk = self._chunk(requests[0:b])
             starts = range(0, n, b)
             pending = None

@@ -4,7 +4,8 @@ JAX package's Pallas kernel in interpret mode and XLA's conv.
 Inputs are made with numpy from a seed and go through both sides on the
 CPU. The port's wrapper takes its plain version for CPU tensors, which is
 what these cases pin; the CUDA kernel is held against the same plain
-version on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+version on the card (``tests/test_torch_cuda.py``; ``chip_smoke.py``
+phase 4 also times it).
 """
 
 import numpy as np
@@ -65,7 +66,8 @@ def test_ragged_shapes_match_xla(shape):
 
 def _bf16_ulps(got: np.ndarray, want: np.ndarray, floor_div: float = 16):
     """|got - want| in bf16 ulps of max(|want|, rms(want) / 16), the
-    measure ``chip_smoke.py`` holds K3 to."""
+    measure ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold K3
+    to on the card."""
     floor = np.sqrt(np.mean(want.astype(np.float64) ** 2)) / floor_div
     _, e = np.frexp(np.maximum(np.abs(want), floor))
     return np.abs(got - want) / np.ldexp(1.0, e - 8)

@@ -7,16 +7,20 @@ there without the suite's JAX-configuring conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
+(or with ``tests/test_torch_cuda_nets.py`` beside it).
+
 Every kernel does its math in f32 and rounds once, like its plain
 version. K1, K1b and K2 sum nothing, so their comparisons are exact; K3
 (``conv3x3_same``) sums 9 * CI products in another order than its plain
 version, so it is held within one bf16 ulp in bf16 and within 1e-5 of the
-largest value in f32 (the limits of ``chip_smoke.py``), on each of its
-three kernels: the FMA one for every f32 input, the TMA + wgmma one where
-``conv3x3_path`` picks it in bf16 and the general mma.sync one for every
-other bf16 input. The backward
-kernels (K1b and the write-back's) are also driven through autograd, to
-show that gradients reach the inputs through both kernels.
+largest value in f32 (the limits of ``chip_smoke.py`` phase 4), on each
+of its three kernels: the FMA one for every f32 input, the TMA + wgmma
+one where ``conv3x3_path`` picks it in bf16 and the general mma.sync one
+for every other bf16 input. The backward kernels (K1b and the
+write-back's) are also driven through autograd, to show that gradients
+reach the inputs through both kernels. The nets and entry points that
+run these kernels are held against the CPU on the card by
+``tests/test_torch_cuda_nets.py``.
 """
 
 import numpy as np
@@ -319,7 +323,7 @@ def _assert_k3_close(got, x, k):
     want = conv3x3_same_plain(x, k).float()
     d = (got.float() - want).abs()
     if x.dtype == torch.bfloat16:
-        # one ulp of max(|plain|, rms(plain) / 16), as chip_smoke.py
+        # one ulp of max(|plain|, rms(plain) / 16), as chip_smoke.py holds
         floor = float(want.square().mean().sqrt()) / 16
         _, e = torch.frexp(want.abs().clamp_min(floor))
         assert bool((d <= torch.ldexp(torch.ones_like(d), e - 8)).all())

@@ -22,8 +22,8 @@ the glyph loader of ``utils/truetype.py``) and its rasterizer
   matched points, scales, 2 x 2 transforms, USE_MY_METRICS, their own
   programs), what ``prep`` leaves the glyph programs, OVERLAP flags; with
   backward compatibility on and off; equal to FreeType's points exactly.
-* The digest fixture ``tests/data/DejaVuSans.hinted.json`` (what the
-  card's host, without PIL, checks the port against) equals PIL's masks.
+* The digest fixture ``tests/data/DejaVuSans.hinted.json`` (a record of
+  PIL's masks for a host without PIL) equals PIL's masks.
 """
 
 import io

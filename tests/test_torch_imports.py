@@ -1,11 +1,11 @@
 """Import hygiene of the port: ``marconet_tpu_torch`` runs on machines
 without JAX, cv2, PIL, PyYAML, TensorBoard or a font library, so no module
-of it (nor ``chip_smoke.py``) may import ``jax``, ``flax``, ``optax``,
-``cv2``, ``PIL``, ``imageio``, ``yaml``, ``tensorboard``, ``tensorboardX``,
-``fontTools``, ``matplotlib`` or ``freetype``, or any ``marconet_tpu``
-module (the port keeps its own copies of the
-framework-free ``alphabet`` and ``version``). Checked on the source
-(AST), for every module, and in a fresh interpreter."""
+of it (nor ``chip_smoke.py`` or the ``cuda``-marked tests) may import
+``jax``, ``flax``, ``optax``, ``cv2``, ``PIL``, ``imageio``, ``yaml``,
+``tensorboard``, ``tensorboardX``, ``fontTools``, ``matplotlib`` or
+``freetype``, or any ``marconet_tpu`` module (the port keeps its own
+copies of the framework-free ``alphabet`` and ``version``). Checked on
+the source (AST), for every module, and in a fresh interpreter."""
 
 import ast
 import pathlib
@@ -96,14 +96,19 @@ def test_module_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_chip_smoke_imports_no_jax_package():
-    """The card smoke takes everything from the port: it may not name any
-    ``marconet_tpu`` module, not even the framework-free ones, nor cv2 or
-    PIL."""
-    smoke = PKG.parent / "chip_smoke.py"
-    bad = [name for name in _imports(smoke)
-           if name.split(".")[0] in FORBIDDEN_ROOTS | {"marconet_tpu"}]
-    assert not bad, f"chip_smoke.py imports {bad}"
+@pytest.mark.parametrize("name", ["chip_smoke.py",
+                                  "tests/test_torch_cuda.py",
+                                  "tests/test_torch_cuda_nets.py"])
+def test_chip_smoke_imports_no_jax_package(name):
+    """What runs on the card's machine (the kernel smoke and the
+    ``cuda``-marked tests, run there with ``--noconftest``) takes
+    everything from the port: it may not name any ``marconet_tpu``
+    module, not even the framework-free ones, nor cv2 or PIL, nor a
+    ``tests`` helper, which may import them."""
+    bad = [mod for mod in _imports(PKG.parent / name)
+           if mod.split(".")[0] in FORBIDDEN_ROOTS | {"marconet_tpu",
+                                                      "tests"}]
+    assert not bad, f"{name} imports {bad}"
 
 
 def test_importing_the_port_loads_no_jax():

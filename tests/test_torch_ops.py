@@ -10,7 +10,9 @@ Kernel K1 (``fused_leaky_relu``) is held against the JAX package's own
 reference, ``fused_leaky_relu(..., use_pallas=False)``: its Pallas kernel
 has no interpret mode. On CPU tensors the port's wrapper takes its plain
 version, which is what these cases pin; the CUDA kernel is compared with
-the same plain version on the card by ``chip_smoke.py``.
+the same plain version on the card by ``tests/test_torch_cuda.py`` (and
+``chip_smoke.py`` phase 3), and in the whole nets by
+``tests/test_torch_cuda_nets.py``.
 """
 
 import numpy as np

@@ -4,7 +4,8 @@ the CPU: a reduced-width bf16 ``MARCONet`` (width 0.0625) through
 pipeline's spans of every traced restore; the CLI's net computes in bf16
 over f32 parameters; the inputs are the JAX tool's
 (``tools/profile_sr.py``). On the card the same function traces the
-kernels (``chip_smoke.py`` phase 15)."""
+CUDA kernels too; ``tests/test_torch_cuda_nets.py`` holds the kernels a
+profiled bf16 training step launches there."""
 
 import functools
 import json

@@ -165,12 +165,14 @@ class _SpyNet:
 @pytest.mark.parametrize("n, buckets, want_rows, whole_buckets", [
     (17, serve.DEFAULT_BUCKETS, [17], (32,)),
     (5, (4,), [4, 1], (8,)),
+    (5, (1, 4), [4, 1], (8,)),
 ])
 def test_chunks_restore_at_their_rows(nets, n, buckets, want_rows,
                                       whole_buckets):
     """A chunk restores at the rows it holds, not padded to its bucket:
     17 requests under the default buckets are one call of 17 rows, 5 at
-    ``buckets=(4,)`` calls of 4 and 1. The results equal one chunk's
+    ``buckets=(4,)`` or ``(1, 4)`` calls of 4 and 1 (only the largest
+    bucket acts). The results equal one chunk's
     within ``test_chunking_invariance``'s tolerance, in the same order."""
     _, _, net = nets
     rng = np.random.default_rng(5)

@@ -21,8 +21,9 @@ Pillow's FreeType's (``tests/freetype_oracle.py``) and whose bitmaps
 equal FreeType's, listing any pair that parts. ``--write-digests``
 writes ``tests/data/fonts/DejaVuSans.hinted.json``: the SHA-256 of the
 ink of Pillow's ``getmask`` for each of those glyphs at 32, 90, 115 and
-140 px, which ``chip_smoke.py`` checks the port against on a host without
-Pillow.
+140 px: a record of Pillow's glyphs for a host without Pillow, which
+``tests/test_torch_hinting.py`` holds to Pillow's masks (the port's glyphs
+are held to FreeType's there and in ``tests/test_torch_render.py``).
 """
 
 from __future__ import annotations
