@@ -59,7 +59,8 @@ from marconet_tpu_torch.models.frontend import (
     mask_segment,
     prepare_segment,
 )
-from marconet_tpu_torch.models.pipeline import MARCONet
+from marconet_tpu_torch.models import pipeline
+from marconet_tpu_torch.models.pipeline import GRAPH_MAX_ROWS, MARCONet
 from marconet_tpu_torch.models.yolo import YOLO11, BatchNorm, nms_static
 from marconet_tpu_torch.ops.conv3x3 import conv3x3_same
 from marconet_tpu_torch.ops.fused_act import (
@@ -179,6 +180,131 @@ def test_restore_matches_cpu(dev):
         torch.testing.assert_close(getattr(got, name).float().cpu(),
                                    getattr(want, name), rtol=2e-3,
                                    atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of small restores (bf16 compute over f32 parameters)
+# ---------------------------------------------------------------------------
+
+OUTPUTS = ("sr", "priors", "logits", "pred_locs", "w")
+
+
+def _bf16_line(seed: int, slots: int, rows: int = 1):
+    n_valid = max(1, slots - 1)
+    centers = (np.arange(n_valid) + 0.5) / n_valid
+    return _lines(np.random.default_rng(seed), rows, slots, n_valid,
+                  centers)
+
+
+def _eager(net, inputs, monkeypatch):
+    """``net.restore(*inputs)`` with graphs off."""
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, "GRAPH_MAX_ROWS", 0)
+        return net.restore(*inputs)
+
+
+def _assert_equal(got, want):
+    for name in OUTPUTS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("slots", [4, 8, 16])
+def test_graphed_restore_equals_eager(dev, slots, monkeypatch):
+    """One row at 4, 8 and 16 slots: the first call (eager on a side
+    stream, then the capture) and two replays equal the eager restore bit
+    for bit, and each makes exactly ``RESTORE_LAUNCHES``."""
+    net = MARCONet(dtype=torch.bfloat16, device=dev, seed=0)
+    inputs = _bf16_line(slots, slots)
+    want = _eager(net, inputs, monkeypatch)
+    first, launched = _launched(lambda: net.restore(*inputs))
+    assert launched == RESTORE_LAUNCHES
+    assert (net.graph_captures, net.graph_replays) == (1, 0)
+    _assert_equal(first, want)
+    for k in range(2):
+        got, launched = _launched(lambda: net.restore(*inputs))
+        assert launched == RESTORE_LAUNCHES
+        _assert_equal(got, want)
+    assert (net.graph_captures, net.graph_replays) == (1, 2)
+    assert list(net._graphs) == [(1, slots)]
+
+
+def test_graph_capture_with_event_hooks(dev, monkeypatch):
+    """Forward hooks that record CUDA events around each net, as the
+    benchmark's traced run registers them, do not stop the capture; the
+    replay still equals the eager restore."""
+    net = MARCONet(dtype=torch.bfloat16, device=dev, seed=0)
+    log, handles = [], []
+    for name in ("encoder", "prior", "srnet"):
+        mod = getattr(net, name)
+
+        def pre(mod, args):
+            mod._start = torch.cuda.Event(enable_timing=True)
+            mod._start.record()
+
+        def post(mod, args, out, name=name):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            log.append((name, mod._start, end))
+
+        handles += [mod.register_forward_pre_hook(pre),
+                    mod.register_forward_hook(post)]
+    inputs = _bf16_line(3, 8)
+    try:
+        first = net.restore(*inputs)
+        assert net.graph_captures == 1
+        assert [n for n, _, _ in log[:3]] == ["encoder", "prior", "srnet"]
+        got = net.restore(*inputs)
+        assert net.graph_replays == 1
+    finally:
+        for h in handles:
+            h.remove()
+    want = _eager(net, inputs, monkeypatch)
+    _assert_equal(first, want)
+    _assert_equal(got, want)
+
+
+def test_graphs_read_loaded_weights(dev, monkeypatch):
+    """``load_state_dict`` after the capture copies into the parameters the
+    graphs read: the next replay gives the new weights' eager output."""
+    net = MARCONet(dtype=torch.bfloat16, device=dev, seed=0)
+    other = MARCONet(dtype=torch.bfloat16, device=dev, seed=1)
+    inputs = _bf16_line(4, 4)
+    old = net.restore(*inputs)
+    net.restore(*inputs)
+    net.load_state_dict(other.state_dict())
+    got = net.restore(*inputs)
+    assert (net.graph_captures, net.graph_replays) == (1, 2)
+    want = _eager(other, inputs, monkeypatch)
+    _assert_equal(got, want)
+    assert not torch.equal(got.sr, old.sr)
+
+
+def test_replays_do_not_alias(dev):
+    """Two consecutive replays return tensors of their own: the second
+    neither shares storage with the first nor changes it."""
+    net = MARCONet(dtype=torch.bfloat16, device=dev, seed=0)
+    net.restore(*_bf16_line(5, 8))
+    a = net.restore(*_bf16_line(6, 8))
+    kept = {name: getattr(a, name).clone() for name in OUTPUTS}
+    b = net.restore(*_bf16_line(7, 8))
+    assert net.graph_replays == 2
+    for name in OUTPUTS:
+        ta, tb = getattr(a, name), getattr(b, name)
+        assert ta.untyped_storage().data_ptr() != \
+            tb.untyped_storage().data_ptr(), name
+        assert torch.equal(ta, kept[name]), name
+    assert not torch.equal(a.sr, b.sr)
+
+
+def test_chunk_above_cap_stays_eager(dev):
+    """``GRAPH_MAX_ROWS + 1`` rows run eagerly, call after call."""
+    net = MARCONet(dtype=torch.bfloat16, device=dev, seed=0)
+    inputs = _bf16_line(8, 4, rows=GRAPH_MAX_ROWS + 1)
+    for _ in range(2):
+        _, launched = _launched(lambda: net.restore(*inputs))
+        assert launched == RESTORE_LAUNCHES
+    assert (net.graph_captures, net.graph_replays) == (0, 0)
+    assert not net._graphs
 
 
 # ---------------------------------------------------------------------------

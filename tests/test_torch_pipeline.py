@@ -19,7 +19,12 @@ from marconet_tpu_torch.convert import (
     prior_from_jax,
     srnet_from_jax,
 )
-from marconet_tpu_torch.models.pipeline import MARCONet
+from marconet_tpu_torch.alphabet import BLANK_INDEX
+from marconet_tpu_torch.models.pipeline import (
+    GRAPH_MAX_ROWS,
+    MARCONet,
+    graphed,
+)
 
 torch.set_num_threads(1)
 
@@ -90,3 +95,40 @@ def test_restore_checks_inputs(nets):
         net.restore(lq[:, :16], labels, locs, mask)
     with pytest.raises(ValueError):
         net.restore(lq, torch.cat([labels, labels], 1), locs, mask)
+
+
+@pytest.mark.parametrize("rows", [1, 2, GRAPH_MAX_ROWS, GRAPH_MAX_ROWS + 1,
+                                  17, 64])
+def test_graph_rule(rows):
+    """CUDA graphs take exactly the restores of at most ``GRAPH_MAX_ROWS``
+    rows on a CUDA device, and none on the CPU."""
+    assert graphed(torch.device("cuda"), rows) == (rows <= GRAPH_MAX_ROWS)
+    assert graphed(torch.device("cuda", 0), rows) == (rows <= GRAPH_MAX_ROWS)
+    assert not graphed(torch.device("cpu"), rows)
+
+
+@pytest.mark.parametrize("rows,slots", [(1, 4), (1, 16),
+                                        (GRAPH_MAX_ROWS, 8)])
+def test_cpu_restore_is_never_graphed(nets, rows, slots):
+    """A CPU net captures and replays nothing, and each restore equals the
+    three nets run by hand on the same inputs, bit for bit."""
+    _, _, net = nets
+    lq, labels, locs, mask = map(torch.from_numpy,
+                                 _inputs(3, batch=rows, slots=slots))
+    got = [net.restore(lq, labels, locs, mask) for _ in range(2)]
+    assert (net.graph_captures, net.graph_replays) == (0, 0)
+    assert not net._graphs
+    with torch.inference_mode():
+        x = lq.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        logits, pred_locs, w = net.encoder(x)
+        safe = torch.where(mask > 0, labels.long(), BLANK_INDEX)
+        pri = net.generate_priors(w, safe)
+        sr = net.super_resolve(x, pri.feat64, pri.feat32, locs, mask)
+    want = {"sr": sr.permute(0, 2, 3, 1),
+            "priors": pri.image.permute(0, 2, 3, 1).reshape(
+                rows, slots, 128, 128, 3),
+            "logits": logits, "pred_locs": pred_locs, "w": w}
+    for out in got:
+        for name, t in want.items():
+            assert torch.equal(getattr(out, name), t), name
