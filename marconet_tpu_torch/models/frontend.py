@@ -13,6 +13,16 @@ JAX package's cv2 calls (``utils/image.resize_linear_u8``,
 ``gaussian_blur_u8``); the two networks run in f32 on the front-end's
 device. Only the kept boxes and the recognizer's per-frame argmax ids
 come back to the host.
+
+Under ``torch.profiler`` a call marks its work as spans
+(``utils/tracing.py``): ``frontend/detect`` (letterbox, upload, YOLO,
+NMS, the kept boxes back on the host), ``frontend/mask`` (the masked
+windows and their recognizer inputs, on the host) and
+``frontend/recognize`` (upload, recognizer, argmax, ids back, decode);
+on CUDA the first and the last record their device ms too. Counts kept
+on every call, profiler or not: ``images``, ``boxes`` (kept),
+``segments`` (windows recognized) and ``ocr_rows``
+(recognizer rows run, the power-of-two padding included).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from marconet_tpu_torch.utils.image import (
     normalized_locs_from_boxes,
     resize_linear_u8,
 )
+from marconet_tpu_torch.utils.tracing import settle, span
 
 # checkpoint file names searched by ``from_checkpoints`` (the JAX
 # package's; its export tools write the first of each)
@@ -165,6 +176,7 @@ class CharacterFrontend:
                  iou: float = 0.1, imgsz: int = 640, max_det: int = 100,
                  *, device="cuda"):
         self.device = resolve_device(device)
+        self.cuda = self.device.type == "cuda"
         self.conf, self.iou, self.imgsz = conf, iou, imgsz
         self.max_det = max_det
         self.yolo = None if yolo is None else \
@@ -172,6 +184,7 @@ class CharacterFrontend:
         self.ocr = None if ocr is None else \
             ocr.to(self.device, torch.float32).eval()
         self.ocr_charset = ocr_charset
+        self.images = self.boxes = self.segments = self.ocr_rows = 0
         self.ocr_offset = 0
         if ocr is not None and ocr_charset:
             self.ocr_offset = max(0, ocr.config.num_classes - len(ocr_charset))
@@ -227,14 +240,15 @@ class CharacterFrontend:
     @torch.inference_mode()
     def detect_boxes(self, img_rgb: np.ndarray) -> np.ndarray:
         """(N, 4) int xyxy boxes in image coordinates, sorted by x1."""
-        padded, r, (top, left) = letterbox(img_rgb, self.imgsz)
-        x = torch.from_numpy(padded[None].astype(np.float32) / 255.0)
-        boxes, scores = self.yolo(x.to(self.device))
-        boxes, _, valid = nms_static(boxes[0], scores[0, :, 0],
-                                     max_det=self.max_det,
-                                     iou_thresh=self.iou,
-                                     conf_thresh=self.conf)
-        boxes = boxes[valid > 0].cpu().numpy()
+        with span("frontend/detect", self.cuda):
+            padded, r, (top, left) = letterbox(img_rgb, self.imgsz)
+            x = torch.from_numpy(padded[None].astype(np.float32) / 255.0)
+            boxes, scores = self.yolo(x.to(self.device))
+            boxes, _, valid = nms_static(boxes[0], scores[0, :, 0],
+                                         max_det=self.max_det,
+                                         iou_thresh=self.iou,
+                                         conf_thresh=self.conf)
+            boxes = boxes[valid > 0].cpu().numpy()
         boxes[:, [0, 2]] = (boxes[:, [0, 2]] - left) / r
         boxes[:, [1, 3]] = (boxes[:, [1, 3]] - top) / r
         h, w = img_rgb.shape[:2]
@@ -248,56 +262,77 @@ class CharacterFrontend:
     def recognize_segment(self, segment_rgb: np.ndarray) -> str:
         return self.recognize_segments([segment_rgb])[0]
 
-    @torch.inference_mode()
+    def prepare_segments(self, segments: Sequence[np.ndarray]
+                         ) -> List[np.ndarray]:
+        """Masked segments at the recognizer's input geometry
+        (:func:`prepare_segment` at its canonical width)."""
+        if self.ocr is None:
+            return list(segments)
+        width = self.ocr.config.canonical_width
+        return [prepare_segment(s, width) for s in segments]
+
     def recognize_segments(self,
                            segments: Sequence[np.ndarray]) -> List[str]:
-        """Recognize masked segments in batched recognizer calls: grouped
-        by prepared width (one group under a checkpoint's canonical
-        width), each batch padded with zero rows to the next power of two
-        (rows are independent). The per-frame argmax runs on the device;
-        only the (B, T) ids come to the host."""
-        if self.ocr is None or len(segments) == 0:
-            return ["" for _ in segments]
+        """Recognize masked segments (see :meth:`recognize_prepared`)."""
+        return self.recognize_prepared(self.prepare_segments(segments))
+
+    @torch.inference_mode()
+    def recognize_prepared(self,
+                           prepared: Sequence[np.ndarray]) -> List[str]:
+        """Recognize prepared segments in batched recognizer calls: grouped
+        by width (one group under a checkpoint's canonical width), each
+        batch padded with zero rows to the next power of two (rows are
+        independent). The per-frame argmax runs on the device; only the
+        (B, T) ids come to the host."""
+        if self.ocr is None or len(prepared) == 0:
+            return ["" for _ in prepared]
         cfg = self.ocr.config
-        prepared = [prepare_segment(s, cfg.canonical_width)
-                    for s in segments]
         out: List[Optional[str]] = [None] * len(prepared)
         by_width: dict = {}
         for i, seg in enumerate(prepared):
             by_width.setdefault(seg.shape[1], []).append(i)
-        for idxs in by_width.values():
-            x = np.stack([prepared[i] for i in idxs]).astype(np.float32)
-            x = (x / 255.0 - 0.5) / 0.5
-            n = len(idxs)
-            nb = 1 << (n - 1).bit_length()            # 1, 2, 4, 8, ...
-            if nb > n:
-                x = np.concatenate(
-                    [x, np.zeros((nb - n,) + x.shape[1:], x.dtype)])
-            logits = self.ocr(torch.from_numpy(x).to(self.device))
-            ids = logits.argmax(-1).to(torch.int32)[:n].cpu().numpy()
-            texts = decode_ctc_ids(ids, charset=self.ocr_charset,
-                                   blank=cfg.blank_index,
-                                   offset=self.ocr_offset)
-            for i, t in zip(idxs, texts):
-                out[i] = t.replace(" ", "")
+        with span("frontend/recognize", self.cuda):
+            for idxs in by_width.values():
+                x = np.stack([prepared[i] for i in idxs]).astype(np.float32)
+                x = (x / 255.0 - 0.5) / 0.5
+                n = len(idxs)
+                nb = 1 << (n - 1).bit_length()            # 1, 2, 4, 8, ...
+                if nb > n:
+                    x = np.concatenate(
+                        [x, np.zeros((nb - n,) + x.shape[1:], x.dtype)])
+                logits = self.ocr(torch.from_numpy(x).to(self.device))
+                ids = logits.argmax(-1).to(torch.int32)[:n].cpu().numpy()
+                texts = decode_ctc_ids(ids, charset=self.ocr_charset,
+                                       blank=cfg.blank_index,
+                                       offset=self.ocr_offset)
+                for i, t in zip(idxs, texts):
+                    out[i] = t.replace(" ", "")
+                self.segments += n
+                self.ocr_rows += nb
         return out  # type: ignore[return-value]
 
     # -- full pipeline -----------------------------------------------------
 
     def __call__(self, img_rgb: np.ndarray) -> FrontendResult:
+        self.images += 1
         boxes = self.detect_boxes(img_rgb)
-        segs, starts = [], []
-        for j in range(len(boxes)):
-            seg, start = mask_segment(img_rgb, boxes, j)
-            segs.append(seg)
-            starts.append(start)
-        texts = self.recognize_segments(segs)
+        self.boxes += len(boxes)
+        with span("frontend/mask"):
+            segs, starts = [], []
+            for j in range(len(boxes)):
+                seg, start = mask_segment(img_rgb, boxes, j)
+                segs.append(seg)
+                starts.append(start)
+            prepared = self.prepare_segments(segs)
+        texts = self.recognize_prepared(prepared)
         chars: List[str] = []
         centers: List[int] = []
         for j, (box, start, text) in enumerate(zip(boxes, starts, texts)):
             chars.append(text[min(j - start, len(text) - 1)] if text else "")
             centers.append(int((box[0] + box[2]) // 2))
         locs = normalized_locs_from_boxes(boxes, img_rgb.shape[0])
+        # the ids' copy to the host covered every device span of the call
+        settle()
         return FrontendResult(boxes=boxes, chars=chars,
                               text="".join(chars), locs=locs,
                               x_centers=centers)

@@ -42,7 +42,9 @@ ranks (``all_reduce_grads``) after the G backward and after each D / SRD
 backward, before the optimizer steps, and the returned losses are summed
 too: both equal one process's over the global batch. Without a process
 group no collective runs and the step is unchanged; under a group of one
-rank only the gradient buckets go through it.
+rank only the gradient buckets go through it. Under ``torch.profiler``
+each gradient sum is marked as a ``train/allreduce`` span
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from marconet_tpu_torch.train.lpips import (
     check_lpips_weights,
     load_lpips,
 )
+from marconet_tpu_torch.utils.tracing import span
 
 NETS = ("encoder", "prior", "srnet", "net_d", "net_srd")
 G_NETS = NETS[:3]
@@ -419,11 +422,13 @@ class MARCONetTrainer:
 
     def _reduce_grads(self, names) -> None:
         """Sum the gradients of the parameters that the optimizers of
-        ``names`` step over all ranks (no-op at world size 1)."""
-        distributed.all_reduce_grads(
-            p for name in names if self.optimizers[name] is not None
-            for group in self.optimizers[name].param_groups
-            for p in group["params"])
+        ``names`` step over all ranks (no-op at world size 1), inside a
+        ``train/allreduce`` span."""
+        with span("train/allreduce"):
+            distributed.all_reduce_grads(
+                p for name in names if self.optimizers[name] is not None
+                for group in self.optimizers[name].param_groups
+                for p in group["params"])
 
     def g_phase(self, batch: TrainBatch, share: Optional[dict] = None):
         """Phase G forward and backward, no optimizer step: gradients are
